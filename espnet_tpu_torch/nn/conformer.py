@@ -1,0 +1,96 @@
+"""Conformer encoder (counterpart of espnet_tpu/nn/conformer.py).
+
+Macaron FFN -> rel-pos MHSA -> conv module -> FFN, half-step residuals,
+a LayerNorm after each block and after the stack. The conv module
+normalises with LayerNorm, as the JAX package does (not BatchNorm).
+LayerNorms use flax's epsilon, 1e-6.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from espnet_tpu_torch.nn.attention import RelPositionMultiHeadedAttention
+from espnet_tpu_torch.nn.convolution import DepthwiseConv1d
+from espnet_tpu_torch.nn.embedding import RelPositionalEncoding
+from espnet_tpu_torch.nn.subsampling import Conv2dSubsampling
+from espnet_tpu_torch.nn.transformer import PositionwiseFeedForward
+from espnet_tpu_torch.utils.masks import make_non_pad_mask
+
+LN_EPS = 1e-6
+
+
+class ConvolutionModule(nn.Module):
+    """pointwise -> GLU -> depthwise -> LayerNorm -> swish -> pointwise."""
+
+    def __init__(self, channels: int, kernel_size: int = 31):
+        super().__init__()
+        self.pointwise_conv1 = nn.Linear(channels, 2 * channels)
+        self.depthwise_conv = DepthwiseConv1d(channels, kernel_size)
+        self.norm = nn.LayerNorm(channels, eps=LN_EPS)
+        self.pointwise_conv2 = nn.Linear(channels, channels)
+
+    def forward(self, x, valid_mask=None):
+        """(B, T, D) -> (B, T, D); valid_mask (B, T) True = valid."""
+        if valid_mask is not None:
+            x = x.masked_fill(~valid_mask[:, :, None], 0.0)
+        h = F.glu(self.pointwise_conv1(x), dim=-1)
+        h = F.silu(self.norm(self.depthwise_conv(h)))
+        h = self.pointwise_conv2(h)
+        if valid_mask is not None:
+            h = h.masked_fill(~valid_mask[:, :, None], 0.0)
+        return h
+
+
+class ConformerEncoderLayer(nn.Module):
+
+    def __init__(self, attention_heads: int, d_model: int,
+                 linear_units: int, cnn_kernel: int = 31):
+        super().__init__()
+        self.norm_ff_macaron = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.feed_forward_macaron = PositionwiseFeedForward(
+            d_model, linear_units, "swish")
+        self.norm_mha = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.self_attn = RelPositionMultiHeadedAttention(attention_heads,
+                                                         d_model)
+        self.norm_conv = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.conv_module = ConvolutionModule(d_model, cnn_kernel)
+        self.norm_ff = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.feed_forward = PositionwiseFeedForward(d_model, linear_units,
+                                                    "swish")
+        self.norm_final = nn.LayerNorm(d_model, eps=LN_EPS)
+
+    def forward(self, x, pos_emb, mask, valid_mask):
+        x = x + 0.5 * self.feed_forward_macaron(self.norm_ff_macaron(x))
+        h = self.norm_mha(x)
+        x = x + self.self_attn(h, h, h, pos_emb, mask)
+        x = x + self.conv_module(self.norm_conv(x), valid_mask)
+        x = x + 0.5 * self.feed_forward(self.norm_ff(x))
+        return self.norm_final(x)
+
+
+class ConformerEncoder(nn.Module):
+    """Conv2dSubsampling x4 -> rel-pos encoding -> blocks -> LayerNorm."""
+
+    def __init__(self, input_size: int, output_size: int = 256,
+                 attention_heads: int = 4, linear_units: int = 2048,
+                 num_blocks: int = 6, cnn_module_kernel: int = 31):
+        super().__init__()
+        self.embed = Conv2dSubsampling(input_size, output_size)
+        self.pos_enc = RelPositionalEncoding(output_size)
+        self.layers = nn.ModuleList(
+            ConformerEncoderLayer(attention_heads, output_size, linear_units,
+                                  cnn_module_kernel)
+            for _ in range(num_blocks))
+        self.after_norm = nn.LayerNorm(output_size, eps=LN_EPS)
+
+    def forward(self, xs: torch.Tensor, ilens: torch.Tensor):
+        """(B, T, F) features -> (B, T', D), lengths (B,)."""
+        xs, olens = self.embed(xs, ilens)
+        xs, pos_emb = self.pos_enc(xs)
+        valid = make_non_pad_mask(olens, xs.shape[1])
+        for layer in self.layers:
+            xs = layer(xs, pos_emb, valid[:, None, :], valid)
+        return self.after_norm(xs), olens

@@ -1,0 +1,93 @@
+"""ASR task: build the model from a config dict (counterpart of
+espnet_tpu/tasks/asr.py:ASRTask.build_model and
+tasks/abs_task.py:build_model_from_file).
+
+Only what the flagship config names is built: the default frontend,
+GlobalMVN, a conformer encoder and a transformer decoder. Any other
+choice raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Any, Dict
+
+import torch
+
+from espnet_tpu_torch import convert
+from espnet_tpu_torch.frontends.default import DefaultFrontend, GlobalMVN
+from espnet_tpu_torch.models.asr import ASRModel
+from espnet_tpu_torch.utils.config import load_yaml
+
+
+def read_token_list(token_list) -> list:
+    if isinstance(token_list, (list, tuple)):
+        return list(token_list)
+    lines = Path(token_list).read_text(encoding="utf-8").splitlines()
+    return [ln for ln in lines if ln.strip()]
+
+
+def _require(cfg, key, supported, default):
+    value = cfg.get(key, default)
+    if value not in supported:
+        raise NotImplementedError(
+            f"{key}={value!r}: the port builds {sorted(map(str, supported))}")
+    return value
+
+
+def build_model(cfg: Dict[str, Any]) -> ASRModel:
+    # fp32 means fp32: TF32 in matmuls or cuDNN convolutions would keep
+    # only ~3 decimal digits and break parity with the reference
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _require(cfg, "frontend", {"default"}, "default")
+    normalize = _require(cfg, "normalize", {"global_mvn", None}, None)
+    _require(cfg, "encoder", {"conformer"}, "transformer")
+    _require(cfg, "decoder", {"transformer", None}, "transformer")
+    _require(cfg, "model", {None}, None)
+    for key in ("preencoder", "postencoder"):
+        _require(cfg, key, {None}, None)
+    token_list = read_token_list(cfg["token_list"])
+    stats = None
+    if normalize == "global_mvn":
+        stats_file = cfg.get("stats_file") or (
+            cfg.get("normalize_conf") or {}).get("stats_file")
+        if not stats_file:
+            raise NotImplementedError("global_mvn without a stats_file")
+        stats = GlobalMVN.from_file(stats_file)
+    mc = dict(cfg.get("model_conf") or {})
+    if mc.get("interctc_weight", 0.0) or (cfg.get("ctc_conf") or {}):
+        raise NotImplementedError("interCTC and ctc_conf are not ported")
+    decoder_conf = (dict(cfg.get("decoder_conf") or {})
+                    if cfg.get("decoder", "transformer") else None)
+    return ASRModel(
+        vocab_size=len(token_list), token_list=token_list,
+        frontend=DefaultFrontend(**dict(cfg.get("frontend_conf") or {})),
+        normalize=stats,
+        encoder_conf=dict(cfg.get("encoder_conf") or {}),
+        decoder_conf=decoder_conf,
+        ctc_weight=mc.get("ctc_weight", 0.5))
+
+
+def build_model_from_file(config_file, model_file, device):
+    """-> (model on ``device`` in eval mode, cfg).
+
+    ``tokens.txt`` and ``feats_stats.npz`` next to the config (the layout
+    of the committed assets) replace the config's token_list and
+    stats_file, as the bench does: the configured paths name a training
+    work directory that may belong to another checkout. Without a local
+    file the configured path stands. ``model_file`` is a
+    ``params_f16.npz`` file or the directory that holds it.
+    """
+    cfg = load_yaml(config_file)
+    here = Path(config_file).parent
+    for key, fname in (("token_list", "tokens.txt"),
+                       ("stats_file", "feats_stats.npz")):
+        if (here / fname).exists():
+            cfg[key] = str(here / fname)
+    model = build_model(cfg)
+    path = Path(model_file)
+    if path.is_dir():
+        path = path / "params_f16.npz"
+    convert.load_flax_params(model, convert.read_npz(path))
+    return model.to(device).eval(), cfg

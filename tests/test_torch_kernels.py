@@ -1,0 +1,136 @@
+"""The port's kernel modules against the JAX package, on the CPU.
+
+On a CPU tensor each wrapper runs its kernel's plain PyTorch version; that
+version is held here against the JAX function (the einsum path of
+fused_attention, and fused_logmel in interpret mode). The CUDA kernels
+themselves are held against the plain versions by tests/test_torch_gpu.py,
+which needs a card.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from espnet_tpu.ops.attention_kernels import fused_attention as jax_attention
+from espnet_tpu.ops.mel import log_mel as jax_log_mel
+from espnet_tpu.ops.mel import mel_filterbank as jax_mel_filterbank
+from espnet_tpu.ops.pallas.logmel_kernel import fused_logmel as jax_logmel
+from espnet_tpu.ops.stft import _windowed_dft_matrix as jax_dft
+from espnet_tpu.ops.stft import stft as jax_stft
+from espnet_tpu.ops.stft import stft_power as jax_stft_power
+from espnet_tpu.ops.stft import stft_segmented as jax_stft_segmented
+from espnet_tpu_torch.ops.attention import fused_attention
+from espnet_tpu_torch.ops.logmel import fused_logmel, n_frames
+from espnet_tpu_torch.ops.mel import log_mel, mel_filterbank
+from espnet_tpu_torch.ops.stft import (_windowed_dft_matrix, stft,
+                                       stft_segmented)
+
+# fp32 throughout; the two frameworks sum in different orders, so outputs
+# agree to a few ulps of their magnitude (attention outputs are O(1))
+ATOL = 2e-5
+# log-mel: the same, in the log domain of O(1..10) energies
+LOGMEL_ATOL = 1e-4
+
+
+def _attention_case(rng, B, H, Tq, Tk, d, bias_kind):
+    q, k, v = (rng.randn(B, H, T, d).astype(np.float32)
+               for T in (Tq, Tk, Tk))
+    if bias_kind is None:
+        return q, k, v, None
+    bias = rng.randn(B, H, Tq, Tk).astype(np.float32)
+    if bias_kind == "padding":
+        lens = rng.randint(1, Tk + 1, size=B)
+        pad = np.where(np.arange(Tk)[None] < lens[:, None], 0.0, -1e9)
+        bias = (bias + pad[:, None, None, :]).astype(np.float32)
+    elif bias_kind == "broadcast":
+        bias = bias[:, :1, :1]
+    return q, k, v, bias
+
+
+@pytest.mark.parametrize("B,H,Tq,Tk,d,bias_kind,causal", [
+    (2, 4, 37, 37, 16, "padding", False),
+    (1, 2, 70, 70, 32, "full", False),
+    (2, 2, 9, 9, 8, None, True),
+    (2, 3, 5, 12, 16, "padding", True),
+    (3, 1, 20, 20, 64, "broadcast", False),
+])
+def test_fused_attention_plain_matches_jax(B, H, Tq, Tk, d, bias_kind,
+                                           causal, record_property):
+    rng = np.random.RandomState(B * 100 + Tq)
+    q, k, v, bias = _attention_case(rng, B, H, Tq, Tk, d, bias_kind)
+    scale = 1.0 / np.sqrt(d)
+    ref = jax_attention(*map(jnp.asarray, (q, k, v)),
+                        None if bias is None else jnp.asarray(bias),
+                        causal=causal, sm_scale=scale, force_xla=True)
+    out = fused_attention(*map(torch.from_numpy, (q, k, v)),
+                          None if bias is None else torch.from_numpy(bias),
+                          causal=causal, sm_scale=scale)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+    record_property("max_abs_err", float(np.abs(out.numpy() - ref).max()))
+
+
+@pytest.mark.parametrize("B,S,fs,n_fft,hop,n_mels", [
+    (2, 20000, 16000, 512, 128, 80),
+    (1, 3000, 8000, 128, 64, 20),
+    (3, 1281, 16000, 512, 128, 80),
+])
+def test_fused_logmel_plain_matches_jax(B, S, fs, n_fft, hop, n_mels,
+                                        record_property):
+    x = np.random.RandomState(S).randn(B, S).astype(np.float32)
+    out = fused_logmel(torch.from_numpy(x), fs=fs, n_fft=n_fft,
+                       hop_length=hop, n_mels=n_mels).numpy()
+    T = n_frames(S, n_fft, hop)
+    assert out.shape == (B, T, n_mels)
+    kernel = jax_logmel(jnp.asarray(x), fs=fs, n_fft=n_fft, hop_length=hop,
+                        n_mels=n_mels, interpret=True)
+    np.testing.assert_allclose(out, np.asarray(kernel)[:, :T],
+                               atol=LOGMEL_ATOL)
+    power, _ = jax_stft_power(jnp.asarray(x), None, n_fft=n_fft,
+                              hop_length=hop)
+    ref = jax_log_mel(power, fs=fs, n_fft=n_fft, n_mels=n_mels)
+    np.testing.assert_allclose(out, np.asarray(ref), atol=LOGMEL_ATOL)
+    record_property("max_abs_err", float(max(
+        np.abs(out - np.asarray(kernel)[:, :T]).max(),
+        np.abs(out - np.asarray(ref)).max())))
+
+
+def test_dft_and_mel_matrices_equal_jax():
+    for args in ((512, 512, "hann", False), (512, 400, "hann", True),
+                 (128, 128, None, False)):
+        np.testing.assert_array_equal(_windowed_dft_matrix(*args),
+                                      jax_dft(*args))
+    for args in ((16000, 512, 80), (8000, 128, 20, 20.0, 3000.0, True)):
+        np.testing.assert_array_equal(mel_filterbank(*args),
+                                      jax_mel_filterbank(*args))
+
+
+def test_stft_and_log_mel_match_jax():
+    x = np.random.RandomState(3).randn(2, 4000).astype(np.float32)
+    lens = np.array([4000, 2500])
+    re, im, olens = stft(torch.from_numpy(x), torch.from_numpy(lens),
+                         n_fft=256, win_length=200, hop_length=64)
+    jre, jim, jolens = jax_stft(jnp.asarray(x), jnp.asarray(lens), n_fft=256,
+                                win_length=200, hop_length=64)
+    np.testing.assert_allclose(re.numpy(), np.asarray(jre), atol=1e-4)
+    np.testing.assert_allclose(im.numpy(), np.asarray(jim), atol=1e-4)
+    np.testing.assert_array_equal(olens.numpy(), np.asarray(jolens))
+    sre, sim = stft_segmented(torch.from_numpy(x), n_fft=512, hop_length=128)
+    jsre, jsim = jax_stft_segmented(jnp.asarray(x), n_fft=512,
+                                    hop_length=128)
+    np.testing.assert_allclose(sre.numpy(), np.asarray(jsre), atol=1e-4)
+    np.testing.assert_allclose(sim.numpy(), np.asarray(jsim), atol=1e-4)
+    power = (sre * sre + sim * sim)
+    out = log_mel(power, fmax=7000.0, log_base=10.0).numpy()
+    ref = jax_log_mel(jnp.asarray(power.numpy()), fmax=7000.0,
+                      log_base=10.0)
+    np.testing.assert_allclose(out, np.asarray(ref), atol=LOGMEL_ATOL)
+
+
+def test_wrappers_raise_on_devices_without_a_kernel():
+    q = torch.zeros(1, 1, 4, 8, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        fused_attention(q, q, q)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        fused_logmel(torch.zeros(1, 4000, device="meta"))
