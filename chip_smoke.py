@@ -9,28 +9,45 @@ Phases, each printing one JSON line:
 1. device: the card's name and the nvidia-smi name and power limit line;
 2. build: compiles the port's CUDA kernels from espnet_tpu_torch/csrc;
 3. kernel_checks: each kernel against its plain PyTorch version at the
-   shapes of the main path, with the stated tolerance; each kernel is
-   timed beside the plain version and one PyTorch library call (a
-   yardstick only);
+   shapes of its path, with the stated tolerance: the attention forward
+   at the decode shape, its backward at the train shape (with the real
+   rel-pos + padding bias of the first conformer block, which needs a
+   gradient) and on a small causal case with Tq != Tk, and the log-mel;
+   each kernel is timed beside the plain version and one PyTorch library
+   call (a yardstick only);
 4. main_path: the flagship hybrid CTC/attention Conformer
    (assets/synth_asr_flagship) built by Speech2Text on the card decodes the
    first 64 held-out SynthSpeechCorpus utterances in fp32 (beam 10, CTC
    weight 0.3): one warm-up decode, then the counted one and two more,
-   all three timed; WER, CER, audio seconds per second and kernel launches.
+   all three timed; WER, CER, audio seconds per second and kernel launches;
+5. train_path: 300 train and 50 valid SynthSpeechCorpus utterances
+   written as Kaldi data dirs under a temporary directory, then the
+   training entry point (espnet_tpu_torch.bin.asr_train.main) on the
+   flagship config, initialised from the flagship's weights: batch 25,
+   10 steps, validation, checkpoint. Per step: the losses, accuracy,
+   gradient norm, skip flag and kernel launches; the median step time,
+   the peak device memory, the validation loss and accuracy before and
+   after, and a reload of the checkpoint that must give the same
+   validation loss;
+6. grad_check: one fixed batch through the flagship in eval mode, on the
+   card (kernels) and on the CPU (plain versions): the loss and every
+   parameter's gradient must agree.
 
 Then the nvidia-smi line, one {"kernels": [...]} line (errors, times and
-bounds of phase 3, launches from the counted decode) and last
-{"ok": true, "device": {...}}. Without a card,
-or when any phase fails, it exits non-zero and prints no result.
+bounds of phase 3, launches from phases 4 and 5) and last
+{"ok": true, "device": {...}}. Without a card, or when any phase fails,
+it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -51,6 +68,24 @@ FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
 K1_TOL = 1e-4
 K2_TOL = 1e-3
 K2_MIN_MEL = 1e-8
+# the attention backward: sums over at most T = 145 terms in fp32, each
+# gradient measured against its own largest entry (~1e-6 expected)
+K1B_TOL = 2e-5
+N_TRAIN, N_VALID = 300, 50
+TRAIN_BATCH = 25
+TRAIN_STEPS = 10
+# warmup 600 keeps the LR under 4e-5 for 10 steps: the model barely
+# moves, so validation accuracy may not fall by more than 1 point
+ACC_MARGIN = 0.01
+# a reload of the checkpoint runs the same kernels on the same batches
+RELOAD_TOL = 1e-5
+# card (kernels, cuBLAS) against CPU (plain versions) through 6 blocks
+# and 3 decoder layers in fp32: each parameter's gradient within 1e-3 of
+# its own largest entry; the key biases, whose gradient is zero in exact
+# arithmetic (a shift of a row of scores does not change its softmax),
+# against 1e-4 of the largest gradient of the model instead
+GRAD_TOL = 1e-3
+GRAD_BATCH = 8
 
 
 def emit(obj):
@@ -84,21 +119,75 @@ def held_out_batch(corpus, n: int, min_len: int):
     return speech, lengths, [text for _, text, _ in utts]
 
 
+def bound(kern):
+    """The larger of bytes / HBM rate and operations / fp32 rate, in ms."""
+    t_bytes = kern["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = kern["flops"] / FP32_FLOPS * 1e3
+    kern["bound_ms"] = max(t_bytes, t_ops)
+    kern["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rel_err(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def train_config(workdir: Path):
+    """The flagship config with its data, token list, stats and initial
+    weights pointed at this run's files."""
+    from espnet_tpu_torch.tasks.asr import ASRTask
+    from espnet_tpu_torch.utils.config import dump_yaml, resolve_config
+    data = workdir / "data"
+    cfg = resolve_config(ASRTask.default_config(), ASSET / "config.yaml", {
+        "output_dir": str(workdir / "exp"),
+        "train_data_path_and_name_and_type": [
+            f"{data}/train/wav.scp,speech,sound",
+            f"{data}/train/text,text,text"],
+        "valid_data_path_and_name_and_type": [
+            f"{data}/valid/wav.scp,speech,sound",
+            f"{data}/valid/text,text,text"],
+        "train_shape_file": [], "valid_shape_file": [],
+        "token_list": str(ASSET / "tokens.txt"),
+        "stats_file": str(ASSET / "feats_stats.npz"),
+        "init_param": str(ASSET / "params_f16.npz"),
+        "batch_size": TRAIN_BATCH, "max_epoch": 1,
+        "num_iters_per_epoch": TRAIN_STEPS, "log_interval": 1})
+    dump_yaml(cfg, workdir / "train.yaml")
+    return cfg
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false")
     sys.path.insert(0, str(ROOT))
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        run(torch, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def run(torch, workdir: Path):
     import torch.nn.functional as F
 
+    from espnet_tpu_torch import convert
+    from espnet_tpu_torch.bin import asr_train
     from espnet_tpu_torch.bin.asr_inference import Speech2Text
     from espnet_tpu_torch.data.synth_speech import SynthSpeechCorpus
+    from espnet_tpu_torch.models.asr import ASRModel
     from espnet_tpu_torch.ops import _cuda
     from espnet_tpu_torch.ops.attention import (fused_attention,
-                                                fused_attention_plain)
+                                                fused_attention_bwd,
+                                                fused_attention_bwd_plain,
+                                                fused_attention_plain,
+                                                softmax_stats_plain)
     from espnet_tpu_torch.ops.logmel import (fused_logmel,
                                              fused_logmel_plain)
     from espnet_tpu_torch.ops.mel import mel_matrix
+    from espnet_tpu_torch.tasks.asr import (ASRTask, build_model,
+                                            build_model_from_file)
+    from espnet_tpu_torch.train.checkpoint import load_checkpoint
+    from espnet_tpu_torch.train.trainer import evaluate, to_device
     from espnet_tpu_torch.utils.scoring import score_corpus
 
     # 1. device
@@ -129,22 +218,38 @@ def main():
     lengths = torch.from_numpy(lengths_np).cuda()
     fe = model.frontend
 
-    # 3. kernels against their plain versions, at the main path's shapes:
-    # the wave batch, and the first conformer block's attention inputs
+    # the train path's data, config and first batch
+    t0 = time.perf_counter()
+    SynthSpeechCorpus().materialize(workdir / "data", n_train=N_TRAIN,
+                                    n_valid=N_VALID, n_test=0)
+    data_s = time.perf_counter() - t0
+    cfg = train_config(workdir)
+    train_if = ASRTask.build_iter_factory(cfg, train=True)
+    valid_if = ASRTask.build_iter_factory(cfg, train=False)
+    first = train_if.epoch_batches(1)[0]
+    _, train_batch = train_if.collate_fn([train_if.dataset[k]
+                                          for k in first])
+    train_batch = to_device(train_batch, "cuda")
+
+    # 3. kernels against their plain versions, at the paths' shapes: the
+    # wave batch, the first conformer block's attention inputs of the
+    # decode batch, and those of the first train batch for the backward
     captured = {}
 
     def capture(module, args):
         captured["args"] = args
 
-    hook = model.encoder_mod.layers[0].self_attn.register_forward_pre_hook(
-        capture)
+    attn = model.encoder_mod.layers[0].self_attn
+    hook = attn.register_forward_pre_hook(capture)
     with torch.no_grad():
         model.encode(speech, lengths)
-        hook.remove()
-        attn = model.encoder_mod.layers[0].self_attn
         q, k, v, bias, sm_scale = attn.kernel_inputs(*captured["args"])
-        B, H, T, d = q.shape
-
+        model.encode(train_batch["speech"], train_batch["speech_lengths"])
+        tq, tk, tv, tbias, _ = attn.kernel_inputs(*captured["args"])
+        tq, tk, tv = tq.contiguous(), tk.contiguous(), tv.contiguous()
+    hook.remove()
+    B, H, T, d = q.shape
+    with torch.no_grad():
         def k1():
             return fused_attention(q, k, v, bias, sm_scale=sm_scale)
 
@@ -179,51 +284,124 @@ def main():
         out2, ref2 = k2(), k2_plain()
         sel = ref2 > float(torch.log(torch.tensor(K2_MIN_MEL)))
         k2_err = float((out2 - ref2)[sel].abs().max())
-        Bw, S = speech.shape
-        frames = Bw * out2.shape[1]
-        nf, n_fft = fe.n_fft // 2 + 1, fe.n_fft
-        mel_nnz = int((melw != 0).sum())
-        checks = [
-            {"name": "flash_attn_fwd", "shape": [B, H, T, d],
-             "tol": K1_TOL},
-            {"name": "logmel_fwd", "shape": [Bw, S], "tol": K2_TOL,
-             "min_mel": K2_MIN_MEL,
-             "max_abs_err_all_frames": float((out2 - ref2).abs().max())},
-        ]
-        # the least work of each function, for its bound: K1's two
-        # products of the attention; for K2 not the dense DFT the kernel
-        # does but an FFT (2.5 N log2 N per frame), the window, the power
-        # and only the nonzero mel weights
-        kernels = [
-            {"name": "flash_attn_fwd", "route": "cuda",
-             "source": "espnet_tpu_torch/csrc/flash_attn.cu",
-             "replaces": "espnet_tpu/ops/attention_kernels.py:31",
-             "max_abs_err": k1_err,
-             "ms": time_ms(torch, k1), "plain_ms": time_ms(torch, k1_plain),
-             "library_ms": time_ms(torch, k1_library),
-             "flops": 4.0 * B * H * T * T * d,
-             "bytes": 4.0 * (4 * B * H * T * d + B * H * T * T)},
-            {"name": "logmel_fwd", "route": "cuda",
-             "source": "espnet_tpu_torch/csrc/logmel.cu",
-             "replaces": "espnet_tpu/ops/pallas/logmel_kernel.py:35",
-             "max_abs_err": k2_err,
-             "ms": time_ms(torch, k2), "plain_ms": time_ms(torch, k2_plain),
-             "library_ms": time_ms(torch, k2_library),
-             "flops": frames * (2.5 * n_fft * math.log2(n_fft) + n_fft
-                                + 3 * nf + 2 * mel_nnz + fe.n_mels),
-             "bytes": 4.0 * (Bw * S + n_fft + mel_nnz
-                             + frames * fe.n_mels)},
-        ]
+
+    # K1b: the kernel through autograd against the plain version's
+    # autograd, with every input (the bias too) needing a gradient
+    def backward_errors(q_, k_, v_, b_, causal, scale, seed):
+        ins = [t.detach().clone().requires_grad_() for t in (q_, k_, v_, b_)]
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        dout = torch.randn(q_.shape, generator=g, device="cuda")
+        kern = torch.autograd.grad(
+            fused_attention(*ins, causal=causal, sm_scale=scale), ins, dout)
+        plain = torch.autograd.grad(
+            fused_attention_plain(*ins, causal=causal, sm_scale=scale), ins,
+            dout)
+        return {name: {"max_abs_err": float((a - b).abs().max()),
+                       "rel_err": rel_err(a, b)}
+                for name, a, b in zip(("dq", "dk", "dv", "dbias"), kern,
+                                      plain)}
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    cq, ck, cv = (torch.randn(2, 3, T_, 40, generator=g, device="cuda")
+                  for T_ in (70, 50, 50))
+    cbias = torch.randn(2, 3, 70, 50, generator=g, device="cuda")
+    k1b_errs = {"train": backward_errors(tq, tk, tv, tbias, False, sm_scale,
+                                         1),
+                "causal_tq_ne_tk": backward_errors(cq, ck, cv, cbias, True,
+                                                   40 ** -0.5, 2)}
+    k1b_err = max(e["rel_err"] for case in k1b_errs.values()
+                  for e in case.values())
+    Bt, Ht, Tt, dt = tq.shape
+    with torch.no_grad():
+        tout = fused_attention_plain(tq, tk, tv, tbias, sm_scale=sm_scale)
+        tstats = softmax_stats_plain(tq, tk, tbias, sm_scale=sm_scale)
+        tdout = torch.randn(tq.shape, generator=g, device="cuda")
+
+    def k1b():
+        return fused_attention_bwd(tq, tk, tv, tbias, tout, tstats, tdout,
+                                   sm_scale=sm_scale)
+
+    def k1b_plain():
+        return fused_attention_bwd_plain(tq, tk, tv, tbias, tout, tstats,
+                                         tdout, sm_scale=sm_scale)
+
+    lib_ins = [t.detach().clone().requires_grad_()
+               for t in (tq, tk, tv, tbias)]
+    lib_out = F.scaled_dot_product_attention(*lib_ins[:3],
+                                             attn_mask=lib_ins[3],
+                                             scale=sm_scale)
+
+    def k1b_library():
+        return torch.autograd.grad(lib_out, lib_ins, tdout,
+                                   retain_graph=True)
+
+    try:
+        k1b_library_ms, k1b_library_note = time_ms(torch, k1b_library), None
+    except RuntimeError as e:   # a yardstick only: no backend may take it
+        k1b_library_ms, k1b_library_note = None, str(e)[:300]
+
+    Bw, S = speech.shape
+    frames = Bw * out2.shape[1]
+    nf, n_fft = fe.n_fft // 2 + 1, fe.n_fft
+    mel_nnz = int((melw != 0).sum())
+    checks = [
+        {"name": "flash_attn_fwd", "shape": [B, H, T, d], "tol": K1_TOL},
+        {"name": "flash_attn_bwd", "shape": [Bt, Ht, Tt, dt],
+         "tol": K1B_TOL, "tol_of": "max abs err / max |plain|",
+         "cases": k1b_errs},
+        {"name": "logmel_fwd", "shape": [Bw, S], "tol": K2_TOL,
+         "min_mel": K2_MIN_MEL,
+         "max_abs_err_all_frames": float((out2 - ref2).abs().max())},
+    ]
+    # the least work of each function, for its bound: K1's two products
+    # of the attention; K1b's five (q k^T, do v^T, P^T do, dS^T q, dS k)
+    # with q, k, v, o, do and the bias read and dq, dk, dv and dbias
+    # written; for K2 not the dense DFT the kernel does but an FFT
+    # (2.5 N log2 N per frame), the window, the power and only the
+    # nonzero mel weights
+    kernels = [
+        {"name": "flash_attn_fwd", "route": "cuda",
+         "source": "espnet_tpu_torch/csrc/flash_attn.cu",
+         "replaces": "espnet_tpu/ops/attention_kernels.py:31",
+         "max_abs_err": k1_err,
+         "ms": time_ms(torch, k1), "plain_ms": time_ms(torch, k1_plain),
+         "library_ms": time_ms(torch, k1_library),
+         "flops": 4.0 * B * H * T * T * d,
+         "bytes": 4.0 * (4 * B * H * T * d + B * H * T * T)},
+        {"name": "flash_attn_bwd", "route": "cuda",
+         "source": "espnet_tpu_torch/csrc/flash_attn_bwd.cu",
+         "replaces": ("jax/experimental/pallas/ops/tpu/flash_attention.py"
+                      ":254 (_flash_attention_bwd, reached from "
+                      "espnet_tpu/ops/attention_kernels.py:55)"),
+         "max_abs_err": max(e["max_abs_err"] for e in
+                            k1b_errs["train"].values()),
+         "ms": time_ms(torch, k1b), "plain_ms": time_ms(torch, k1b_plain),
+         "library_ms": k1b_library_ms,
+         "library_note": k1b_library_note or (
+             "autograd backward of scaled_dot_product_attention with the "
+             "float bias needing a gradient"),
+         "flops": 10.0 * Bt * Ht * Tt * Tt * dt,
+         "bytes": 4.0 * (8 * Bt * Ht * Tt * dt + 2 * Bt * Ht * Tt * Tt)},
+        {"name": "logmel_fwd", "route": "cuda",
+         "source": "espnet_tpu_torch/csrc/logmel.cu",
+         "replaces": "espnet_tpu/ops/pallas/logmel_kernel.py:35",
+         "max_abs_err": k2_err,
+         "ms": time_ms(torch, k2), "plain_ms": time_ms(torch, k2_plain),
+         "library_ms": time_ms(torch, k2_library),
+         "flops": frames * (2.5 * n_fft * math.log2(n_fft) + n_fft
+                            + 3 * nf + 2 * mel_nnz + fe.n_mels),
+         "bytes": 4.0 * (Bw * S + n_fft + mel_nnz
+                         + frames * fe.n_mels)},
+    ]
     for kern in kernels:
-        t_bytes = kern["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = kern["flops"] / FP32_FLOPS * 1e3
-        kern["bound_ms"] = max(t_bytes, t_ops)
-        kern["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        bound(kern)
     emit({"phase": "kernel_checks", "checks": checks})
-    for kern, check in zip(kernels, checks):
-        if not kern["max_abs_err"] <= check["tol"]:
-            raise AssertionError(f"{kern['name']} disagrees with its plain "
-                                 f"version: {kern['max_abs_err']}")
+    if not k1_err <= K1_TOL:
+        raise AssertionError(f"flash_attn_fwd disagrees: {k1_err}")
+    if not k1b_err <= K1B_TOL:
+        raise AssertionError(f"flash_attn_bwd disagrees: {k1b_errs}")
+    if not k2_err <= K2_TOL:
+        raise AssertionError(f"logmel_fwd disagrees: {k2_err}")
 
     # 4. main path: one warm-up decode, then the counted and timed one,
     # then REPEATS more timed ones for the spread
@@ -234,7 +412,7 @@ def main():
     out = s2t(speech, lengths)
     torch.cuda.synchronize()
     walls = [time.perf_counter() - t0]
-    launches = dict(_cuda.LAUNCHES)
+    decode_launches = dict(_cuda.LAUNCHES)
     for _ in range(REPEATS):
         t0 = time.perf_counter()
         s2t(speech, lengths)
@@ -259,23 +437,126 @@ def main():
           "audio_seconds": audio_s,
           "wall_seconds": walls, "encode_seconds": encode_s,
           "audio_s_per_s_median": audio_s / wall,
-          "launches": launches, "examples": [[r, h] for r, h in
-                                             zip(refs[:3], hyps[:3])]})
+          "launches": decode_launches,
+          "examples": [[r, h] for r, h in zip(refs[:3], hyps[:3])]})
     if len(out) != N_UTTS or not all(nbest and nbest[0][2]
                                      for nbest in out):
         raise AssertionError("an utterance decoded to nothing")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("flash_attn_fwd", "logmel_fwd"):
+        if decode_launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
     if not wer <= MAX_WER:
         raise AssertionError(f"WER {wer} above {MAX_WER}")
 
+    # 5. train path: the flagship's validation before, then the entry
+    # point; a forward pre-hook on the model notes the launch counts at
+    # each forward, so a train step's launches are the difference to the
+    # next forward (its backward and update lie between)
+    before = evaluate(model, valid_if, "cuda")
+    snaps = []
+
+    def note(module, args):
+        if isinstance(module, ASRModel):
+            snaps.append((module.training, dict(_cuda.LAUNCHES)))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(note)
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        _, trainer = asr_train.main(["--config",
+                                     str(workdir / "train.yaml")])
+    finally:
+        handle.remove()
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    train_launches = dict(_cuda.LAUNCHES)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    snaps.append((None, train_launches))
+    per_step = [{n: nxt[n] - cur[n] for n in cur}
+                for (training, cur), (_, nxt) in zip(snaps, snaps[1:])
+                if training]
+    steps = trainer.step_stats
+    after = trainer.reporter.stats[1]["valid"]
+    # the checkpoint reloaded into a fresh model gives the same validation
+    flat, _, meta = load_checkpoint(workdir / "exp" / "checkpoint")
+    fresh = convert.load_flax_params(build_model(cfg), flat).to("cuda")
+    reloaded = evaluate(fresh, valid_if, "cuda")
+    step_ms = [1e3 * s["train_time"] for s in steps]
+    emit({"phase": "train_path", "n_train": N_TRAIN, "n_valid": N_VALID,
+          "batch_size": TRAIN_BATCH, "data_seconds": data_s,
+          "batch_shape": list(train_batch["speech"].shape),
+          "steps": [{k: s[k] for k in ("loss", "loss_ctc", "loss_att",
+                                       "acc", "grad_norm", "skipped")}
+                    | {"ms": ms, "launches": n}
+                    for s, ms, n in zip(steps, step_ms, per_step)],
+          "step_ms_median_3_10": statistics.median(step_ms[2:]),
+          "peak_memory_bytes": peak_bytes, "wall_seconds": train_wall,
+          "launches": train_launches,
+          "valid_before": before, "valid_after": after,
+          "valid_reloaded": reloaded, "checkpoint_epoch": meta["epoch"]})
+    want = {"flash_attn_fwd": 6, "flash_attn_bwd": 12, "logmel_fwd": 1}
+    if len(steps) != TRAIN_STEPS or len(per_step) != TRAIN_STEPS:
+        raise AssertionError(f"{len(steps)} train steps, not {TRAIN_STEPS}")
+    for s, n in zip(steps, per_step):
+        if not all(math.isfinite(s[k]) for k in ("loss", "loss_ctc",
+                                                 "loss_att", "grad_norm")):
+            raise AssertionError(f"a non-finite train step: {s}")
+        if s["skipped"]:
+            raise AssertionError(f"a train step was skipped: {s}")
+        if n != want:
+            raise AssertionError(f"launches per step {n}, not {want}")
+    if not after["acc"] >= before["acc"] - ACC_MARGIN:
+        raise AssertionError(f"validation accuracy fell: {before['acc']} -> "
+                             f"{after['acc']}")
+    if not abs(reloaded["loss"] / after["loss"] - 1) <= RELOAD_TOL:
+        raise AssertionError(f"the reloaded checkpoint's validation loss "
+                             f"{reloaded['loss']} != {after['loss']}")
+
+    # 6. one step's gradients, card against CPU, on a fixed batch
+    _, batch = valid_if.collate_fn([valid_if.dataset[k] for k in
+                                    valid_if.epoch_batches(0)[0][:GRAD_BATCH]])
+    losses, grads = {}, {}
+    for dev in ("cuda", "cpu"):
+        m, _ = build_model_from_file(ASSET / "config.yaml", ASSET, dev)
+        loss, _, _ = m(**to_device(batch, dev))
+        loss.backward()
+        losses[dev] = loss.item()
+        grads[dev] = convert.state_dict_to_flax(m, grad=True)
+    top = max(float(abs(g).max()) for g in grads["cpu"].values())
+    ratios = {n: float(abs(grads["cuda"][n] - g).max())
+              / max(float(abs(g).max()), 1e-4 * top)
+              for n, g in grads["cpu"].items()}
+    worst = max(ratios, key=ratios.get)
+    emit({"phase": "grad_check", "batch": GRAD_BATCH,
+          "loss_card": losses["cuda"], "loss_cpu": losses["cpu"],
+          "max_grad_ratio": ratios[worst], "worst_param": worst,
+          "n_params": len(ratios), "tol": GRAD_TOL})
+    if not ratios[worst] <= GRAD_TOL:
+        raise AssertionError(f"card and CPU gradients disagree: {worst} "
+                             f"{ratios[worst]}")
+    if not abs(losses["cuda"] / losses["cpu"] - 1) <= GRAD_TOL:
+        raise AssertionError(f"card and CPU losses disagree: {losses}")
+    for name, n in train_launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on the train path")
+
     print(smi, flush=True)
+    per_decode = {n: decode_launches[n] for n in decode_launches}
     emit({"kernels": [
         {key: kern[key] for key in (
             "name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")}
-        | {"launches": launches[kern["name"]]} for kern in kernels],
+        | {"launches": (train_launches[kern["name"]]
+                        if kern["name"] == "flash_attn_bwd"
+                        else per_decode[kern["name"]]),
+           "launches_per_decode": per_decode[kern["name"]],
+           "launches_per_train_step": want[kern["name"]],
+           "launches_train_path": train_launches[kern["name"]]}
+        | ({"library_note": kern["library_note"]}
+           if "library_note" in kern else {})
+        for kern in kernels],
         "nvidia_smi": smi})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

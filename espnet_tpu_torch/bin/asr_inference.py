@@ -19,17 +19,7 @@ from espnet_tpu_torch.decode.beam_search import (BeamSearchConfig,
 from espnet_tpu_torch.decode.ctc_greedy import ctc_greedy_decode
 from espnet_tpu_torch.tasks.asr import build_model_from_file
 from espnet_tpu_torch.text.tokenizer import TokenIDConverter, build_tokenizer
-
-
-def resolve_device(device) -> torch.device:
-    """``None`` means the card; without one that is an error. The CPU is
-    used only when asked for."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to run on the CPU")
-        device = "cuda"
-    return torch.device(device)
+from espnet_tpu_torch.utils.device import resolve_device
 
 
 class Speech2Text:

@@ -24,6 +24,13 @@
 // shared memory are padded by one float so the threads of a warp hit distinct
 // banks. Plain fp32 FMA, no tensor cores: wgmma, TMA and pipelining are later
 // work.
+//
+// For training, the kernel also writes each query row's softmax statistics,
+// the row max m and log l of the row sum, as stats (B, H, Tq, 2). The backward
+// (flash_attn_bwd.cu) recomputes P = exp(s - m - log l) from them. Two numbers
+// and not one log-sum-exp m + log l: in a row whose every score is masked to
+// -1e9 the sum of the two rounds to -1e9 in fp32, and P would come back as 1
+// instead of the forward's uniform 1/Tk.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -41,9 +48,9 @@ __global__ void __launch_bounds__(THREADS)
 flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v,
                       const float* __restrict__ bias, float* __restrict__ out,
-                      int H, int Tq, int Tk, int d, long long bsb,
-                      long long bsh, long long bsq, long long bsk, int causal,
-                      float sm_scale) {
+                      float* __restrict__ stats, int H, int Tq, int Tk,
+                      int d, long long bsb, long long bsh, long long bsq,
+                      long long bsk, int causal, float sm_scale) {
   extern __shared__ float smem[];
   const int dp = d + 1;
   float* sQ = smem;            // BM x dp
@@ -168,6 +175,11 @@ flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int r = q0 + ty * 4 + i;
     if (r >= Tq) continue;
     const float inv = 1.f / l[i];
+    if (stats != nullptr && tx == 0) {
+      float* st = stats + ((long long)bh * Tq + r) * 2;
+      st[0] = m[i];
+      st[1] = logf(l[i]);
+    }
 #pragma unroll
     for (int c = 0; c < CG; ++c) {
       const int col = tx + 16 * c;
@@ -179,10 +191,11 @@ flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }  // namespace
 
 extern "C" int flash_attn_fwd(const float* q, const float* k, const float* v,
-                              const float* bias, float* out, int B, int H,
-                              int Tq, int Tk, int d, long long bsb,
-                              long long bsh, long long bsq, long long bsk,
-                              int causal, float sm_scale, void* stream) {
+                              const float* bias, float* out, float* stats,
+                              int B, int H, int Tq, int Tk, int d,
+                              long long bsb, long long bsh, long long bsq,
+                              long long bsk, int causal, float sm_scale,
+                              void* stream) {
   if (d < 1 || d > DMAX || Tq < 1 || Tk < 1) return (int)cudaErrorInvalidValue;
   const size_t smem =
       sizeof(float) * (size_t)(BM * (d + 1) + BN * (d + 1) + BN * d + BM * BNP);
@@ -192,6 +205,7 @@ extern "C" int flash_attn_fwd(const float* q, const float* k, const float* v,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Tq + BM - 1) / BM, B * H);
   flash_attn_fwd_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      q, k, v, bias, out, H, Tq, Tk, d, bsb, bsh, bsq, bsk, causal, sm_scale);
+      q, k, v, bias, out, stats, H, Tq, Tk, d, bsb, bsh, bsq, bsk, causal,
+      sm_scale);
   return (int)cudaGetLastError();
 }

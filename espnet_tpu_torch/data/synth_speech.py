@@ -2,8 +2,9 @@
 
 A copy of espnet_tpu/data/synth_speech.py:SynthSpeechCorpus and the
 synthesis it needs, so that the port can make the held-out utterances
-without the JAX package. Utterances are reproducible from (split, index)
-and come out bit-identical to the JAX package's.
+and training data directories without the JAX package. Utterances are
+reproducible from (split, index) and come out bit-identical to the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -231,3 +232,23 @@ class SynthSpeechCorpus:
         noise = noise * np.sqrt(sig_p / (10 ** (snr_db / 10)))
         wave = (wave + noise).astype(np.float32)
         return wave, " ".join(words), sid
+
+    def materialize(self, root, n_train: int = 800, n_valid: int = 50,
+                    n_test: int = 50) -> None:
+        """Write Kaldi-style data dirs root/{train,valid,test} (wav.scp,
+        text, 16-bit wavs), utterance ids ``{split}_{index:05d}``, as the
+        JAX package's ``materialize`` does."""
+        from pathlib import Path
+
+        from espnet_tpu_torch.data.fileio import write_wav
+        for split, n in (("train", n_train), ("valid", n_valid),
+                         ("test", n_test)):
+            d = Path(root) / split
+            (d / "wav").mkdir(parents=True, exist_ok=True)
+            with open(d / "wav.scp", "w") as fw, open(d / "text", "w") as ft:
+                for i in range(n):
+                    wave, text, _ = self.utterance(split, i)
+                    uid = f"{split}_{i:05d}"
+                    write_wav(d / "wav" / f"{uid}.wav", FS, wave)
+                    fw.write(f"{uid} {d / 'wav' / f'{uid}.wav'}\n")
+                    ft.write(f"{uid} {text}\n")

@@ -1,10 +1,12 @@
-"""Hybrid CTC/attention ASR model, inference side (counterpart of
+"""Hybrid CTC/attention ASR model (counterpart of
 espnet_tpu/models/asr.py:ASRModel).
 
-encode = frontend -> GlobalMVN -> conformer encoder; a CTC head; and the
-transformer decoder's one-step scorer for beam search. Attribute names
-follow the JAX parameter tree (encoder_mod, ctc, decoder_mod) so that
-``convert.py`` maps one onto the other by path.
+encode = frontend -> SpecAug (training only) -> GlobalMVN -> conformer
+encoder; a CTC head; the transformer decoder, teacher-forced for the
+loss and one step at a time for beam search. The loss is
+ctc_weight * CTC + (1 - ctc_weight) * label-smoothed attention loss.
+Attribute names follow the JAX parameter tree (encoder_mod, ctc,
+decoder_mod) so that ``convert.py`` maps one onto the other by path.
 """
 
 from __future__ import annotations
@@ -17,6 +19,9 @@ from torch import nn
 from espnet_tpu_torch.frontends.default import DefaultFrontend, GlobalMVN
 from espnet_tpu_torch.nn.conformer import ConformerEncoder
 from espnet_tpu_torch.nn.decoder import TransformerDecoder
+from espnet_tpu_torch.ops.losses import (accuracy, add_sos_eos, ctc_loss,
+                                         label_smoothing_loss)
+from espnet_tpu_torch.ops.specaug import specaug
 
 
 class CTCHead(nn.Module):
@@ -35,12 +40,18 @@ class ASRModel(nn.Module):
     def __init__(self, vocab_size: int, token_list, frontend: DefaultFrontend,
                  normalize: Optional[GlobalMVN], encoder_conf: dict,
                  decoder_conf: Optional[dict], ctc_weight: float = 0.5,
-                 blank_id: int = 0):
+                 blank_id: int = 0, specaug_conf: Optional[dict] = None,
+                 lsm_weight: float = 0.0,
+                 length_normalized_loss: bool = False, ignore_id: int = -1):
         super().__init__()
         self.vocab_size = vocab_size
         self.token_list = tuple(token_list)
         self.ctc_weight = ctc_weight
         self.blank_id = blank_id
+        self.specaug_conf = specaug_conf
+        self.lsm_weight = lsm_weight
+        self.length_normalized_loss = length_normalized_loss
+        self.ignore_id = ignore_id
         self.frontend = frontend
         self.normalize = normalize
         d = encoder_conf.get("output_size", 256)
@@ -61,12 +72,44 @@ class ASRModel(nn.Module):
     def eos_id(self) -> int:
         return self.vocab_size - 1
 
-    def encode(self, speech: torch.Tensor, speech_lengths: torch.Tensor):
-        """(B, S) wave, (B,) lengths -> (B, T', D), (B,) lengths."""
+    def encode(self, speech: torch.Tensor, speech_lengths: torch.Tensor,
+               generator: Optional[torch.Generator] = None):
+        """(B, S) wave, (B,) lengths -> (B, T', D), (B,) lengths. SpecAug
+        runs in training only, drawing from ``generator``."""
         feats, feat_lens = self.frontend(speech, speech_lengths)
+        if self.training and self.specaug_conf is not None:
+            feats = specaug(feats, feat_lens, generator=generator,
+                            **self.specaug_conf)
         if self.normalize is not None:
             feats, feat_lens = self.normalize(feats, feat_lens)
         return self.encoder_mod(feats, feat_lens)
+
+    def forward(self, speech, speech_lengths, text, text_lengths,
+                generator: Optional[torch.Generator] = None):
+        """-> (loss, stats {loss, loss_ctc, loss_att, acc}, weight = B)."""
+        enc, enc_lens = self.encode(speech, speech_lengths, generator)
+        return self.compute_losses(enc, enc_lens, text, text_lengths)
+
+    def compute_losses(self, enc, enc_lens, text, text_lengths):
+        stats = {}
+        loss_ctc = enc.new_zeros(())
+        if self.ctc is not None:
+            loss_ctc = ctc_loss(self.ctc(enc), enc_lens, text, text_lengths,
+                                self.blank_id)
+            stats["loss_ctc"] = loss_ctc
+        loss_att = enc.new_zeros(())
+        if self.decoder_mod is not None:
+            ys_in, ys_out = add_sos_eos(text, text_lengths, self.sos_id,
+                                        self.eos_id, self.ignore_id)
+            logits = self.decoder_mod(enc, enc_lens, ys_in, text_lengths + 1)
+            loss_att = label_smoothing_loss(logits, ys_out, self.lsm_weight,
+                                            self.ignore_id,
+                                            self.length_normalized_loss)
+            stats["loss_att"] = loss_att
+            stats["acc"] = accuracy(logits, ys_out, self.ignore_id)
+        loss = self.ctc_weight * loss_ctc + (1.0 - self.ctc_weight) * loss_att
+        stats["loss"] = loss
+        return loss, stats, float(enc.shape[0])
 
     def ctc_logits(self, enc):
         return self.ctc(enc)

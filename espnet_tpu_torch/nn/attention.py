@@ -2,7 +2,10 @@
 espnet_tpu/nn/attention.py:RelPositionMultiHeadedAttention).
 
 Position scores (Transformer-XL terms b + d) become an additive bias of
-the fused attention; content scores (a + c) are its q k^T.
+the fused attention; content scores (a + c) are its q k^T. With attention
+dropout in training the softmax is written out, so that dropout can act
+on the probabilities (the JAX package's dispatch); otherwise the fused
+kernel runs.
 """
 
 from __future__ import annotations
@@ -26,9 +29,10 @@ def rel_shift(x: torch.Tensor) -> torch.Tensor:
 
 class RelPositionMultiHeadedAttention(nn.Module):
 
-    def __init__(self, n_head: int, n_feat: int):
+    def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0):
         super().__init__()
         self.h, self.dk = n_head, n_feat // n_head
+        self.dropout_rate = dropout_rate
         self.linear_q = nn.Linear(n_feat, n_feat)
         self.linear_k = nn.Linear(n_feat, n_feat)
         self.linear_v = nn.Linear(n_feat, n_feat)
@@ -60,6 +64,12 @@ class RelPositionMultiHeadedAttention(nn.Module):
         bool, True = attend -> (B, T, D)."""
         q_u, k, v, bias, sm_scale = self.kernel_inputs(query, key, value,
                                                        pos_emb, mask)
-        out = fused_attention(q_u, k, v, bias, sm_scale=sm_scale)
+        if self.training and self.dropout_rate > 0.0:
+            scores = (q_u @ k.transpose(-1, -2)) * sm_scale + bias
+            attn = F.dropout(torch.softmax(scores, dim=-1),
+                             self.dropout_rate)
+            out = attn @ v
+        else:
+            out = fused_attention(q_u, k, v, bias, sm_scale=sm_scale)
         B, _, T, _ = out.shape
         return self.linear_out(out.transpose(1, 2).reshape(B, T, -1))

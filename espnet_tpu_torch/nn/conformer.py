@@ -3,7 +3,10 @@
 Macaron FFN -> rel-pos MHSA -> conv module -> FFN, half-step residuals,
 a LayerNorm after each block and after the stack. The conv module
 normalises with LayerNorm, as the JAX package does (not BatchNorm).
-LayerNorms use flax's epsilon, 1e-6.
+LayerNorms use flax's epsilon, 1e-6. In training, dropout acts on each
+sub-block's output before its residual add, inside the feed-forwards, and
+on the positional encoding; Conv2dSubsampling has none, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -47,27 +50,32 @@ class ConvolutionModule(nn.Module):
 class ConformerEncoderLayer(nn.Module):
 
     def __init__(self, attention_heads: int, d_model: int,
-                 linear_units: int, cnn_kernel: int = 31):
+                 linear_units: int, cnn_kernel: int = 31,
+                 dropout_rate: float = 0.1,
+                 attention_dropout_rate: float = 0.0):
         super().__init__()
         self.norm_ff_macaron = nn.LayerNorm(d_model, eps=LN_EPS)
         self.feed_forward_macaron = PositionwiseFeedForward(
-            d_model, linear_units, "swish")
+            d_model, linear_units, "swish", dropout_rate)
         self.norm_mha = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.self_attn = RelPositionMultiHeadedAttention(attention_heads,
-                                                         d_model)
+        self.self_attn = RelPositionMultiHeadedAttention(
+            attention_heads, d_model, attention_dropout_rate)
         self.norm_conv = nn.LayerNorm(d_model, eps=LN_EPS)
         self.conv_module = ConvolutionModule(d_model, cnn_kernel)
         self.norm_ff = nn.LayerNorm(d_model, eps=LN_EPS)
         self.feed_forward = PositionwiseFeedForward(d_model, linear_units,
-                                                    "swish")
+                                                    "swish", dropout_rate)
         self.norm_final = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.dropout = nn.Dropout(dropout_rate)
 
     def forward(self, x, pos_emb, mask, valid_mask):
-        x = x + 0.5 * self.feed_forward_macaron(self.norm_ff_macaron(x))
+        drop = self.dropout
+        x = x + 0.5 * drop(self.feed_forward_macaron(
+            self.norm_ff_macaron(x)))
         h = self.norm_mha(x)
-        x = x + self.self_attn(h, h, h, pos_emb, mask)
-        x = x + self.conv_module(self.norm_conv(x), valid_mask)
-        x = x + 0.5 * self.feed_forward(self.norm_ff(x))
+        x = x + drop(self.self_attn(h, h, h, pos_emb, mask))
+        x = x + drop(self.conv_module(self.norm_conv(x), valid_mask))
+        x = x + 0.5 * drop(self.feed_forward(self.norm_ff(x)))
         return self.norm_final(x)
 
 
@@ -76,13 +84,18 @@ class ConformerEncoder(nn.Module):
 
     def __init__(self, input_size: int, output_size: int = 256,
                  attention_heads: int = 4, linear_units: int = 2048,
-                 num_blocks: int = 6, cnn_module_kernel: int = 31):
+                 num_blocks: int = 6, cnn_module_kernel: int = 31,
+                 dropout_rate: float = 0.1,
+                 positional_dropout_rate: float = 0.1,
+                 attention_dropout_rate: float = 0.0):
         super().__init__()
         self.embed = Conv2dSubsampling(input_size, output_size)
-        self.pos_enc = RelPositionalEncoding(output_size)
+        self.pos_enc = RelPositionalEncoding(output_size,
+                                             positional_dropout_rate)
         self.layers = nn.ModuleList(
             ConformerEncoderLayer(attention_heads, output_size, linear_units,
-                                  cnn_module_kernel)
+                                  cnn_module_kernel, dropout_rate,
+                                  attention_dropout_rate)
             for _ in range(num_blocks))
         self.after_norm = nn.LayerNorm(output_size, eps=LN_EPS)
 

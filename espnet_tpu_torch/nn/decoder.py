@@ -1,11 +1,15 @@
-"""Transformer decoder with cached one-step scoring for beam search
-(counterpart of espnet_tpu/nn/decoder.py).
+"""Transformer decoder: the teacher-forced forward of training and the
+cached one-step scoring of beam search (counterpart of
+espnet_tpu/nn/decoder.py).
 
 The decode state is a dict of fixed-size tensors: per-layer self-attention
 KV caches (layers, rows, H, Lmax, dk) written at position ``step``, and
 the encoder K/V of the cross-attention kept at utterance resolution
 (layers, B, H, Tenc, dk) with rows = B * beam. Attention here is plain
-torch: the JAX package runs no Pallas kernel in the decoder either.
+torch: the JAX package runs no Pallas kernel in the decoder either. In
+training, dropout acts on the attention probabilities (at the
+``*_attention_dropout_rate``), inside the feed-forward, on each residual
+branch and on the positional encoding.
 """
 
 from __future__ import annotations
@@ -24,9 +28,10 @@ LN_EPS = 1e-6
 
 class DecoderMHA(nn.Module):
 
-    def __init__(self, n_head: int, n_feat: int):
+    def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0):
         super().__init__()
         self.h, self.dk, self.d = n_head, n_feat // n_head, n_feat
+        self.dropout = nn.Dropout(dropout_rate)
         self.linear_q = nn.Linear(n_feat, n_feat)
         self.linear_k = nn.Linear(n_feat, n_feat)
         self.linear_v = nn.Linear(n_feat, n_feat)
@@ -40,9 +45,16 @@ class DecoderMHA(nn.Module):
         """mask broadcasts to (B, H, Tq, Tk), True = attend."""
         scores = (q @ k.transpose(-1, -2)) / math.sqrt(self.dk)
         scores = scores + attention_bias(mask)
-        out = torch.softmax(scores, dim=-1) @ v
+        out = self.dropout(torch.softmax(scores, dim=-1)) @ v
         B, _, Tq, _ = out.shape
         return self.linear_out(out.transpose(1, 2).reshape(B, Tq, self.d))
+
+    def forward(self, query, key, value, mask):
+        """Full-sequence attention; mask (B, Tq, Tk) or (B, 1, Tk) bool,
+        True = attend, the same for every head."""
+        return self._attend(self._split(self.linear_q(query)),
+                            self._split(self.linear_k(key)),
+                            self._split(self.linear_v(value)), mask[:, None])
 
     def step(self, query, cache_k, cache_v, step: int, kv_mask):
         """query (rows, 1, D); caches (rows, H, Lmax, dk), written in place
@@ -73,14 +85,28 @@ class TransformerDecoderLayer(nn.Module):
     """Pre-norm self-attention, cross-attention and ReLU FFN."""
 
     def __init__(self, attention_heads: int, d_model: int,
-                 linear_units: int):
+                 linear_units: int, dropout_rate: float = 0.1,
+                 self_attention_dropout_rate: float = 0.0,
+                 src_attention_dropout_rate: float = 0.0):
         super().__init__()
-        self.self_attn = DecoderMHA(attention_heads, d_model)
-        self.src_attn = DecoderMHA(attention_heads, d_model)
-        self.feed_forward = PositionwiseFeedForward(d_model, linear_units)
+        self.self_attn = DecoderMHA(attention_heads, d_model,
+                                    self_attention_dropout_rate)
+        self.src_attn = DecoderMHA(attention_heads, d_model,
+                                   src_attention_dropout_rate)
+        self.feed_forward = PositionwiseFeedForward(
+            d_model, linear_units, dropout_rate=dropout_rate)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.dropout = nn.Dropout(dropout_rate)
+
+    def forward(self, tgt, tgt_mask, memory, memory_mask):
+        drop = self.dropout
+        h = self.norm1(tgt)
+        x = tgt + drop(self.self_attn(h, h, h, tgt_mask))
+        x = x + drop(self.src_attn(self.norm2(x), memory, memory,
+                                   memory_mask))
+        return x + drop(self.feed_forward(self.norm3(x)))
 
     def step(self, tgt, cache_k, cache_v, step: int, self_mask, enc_k,
              enc_v, enc_mask):
@@ -94,17 +120,37 @@ class TransformerDecoder(nn.Module):
 
     def __init__(self, vocab_size: int, encoder_output_size: int = 256,
                  attention_heads: int = 4, linear_units: int = 2048,
-                 num_blocks: int = 6):
+                 num_blocks: int = 6, dropout_rate: float = 0.1,
+                 positional_dropout_rate: float = 0.1,
+                 self_attention_dropout_rate: float = 0.0,
+                 src_attention_dropout_rate: float = 0.0):
         super().__init__()
         d = encoder_output_size
         self.d, self.h = d, attention_heads
         self.embed = nn.Embedding(vocab_size, d)
-        self.pos_enc = PositionalEncoding(d)
+        self.pos_enc = PositionalEncoding(
+            d, dropout_rate=positional_dropout_rate)
         self.layers = nn.ModuleList(
-            TransformerDecoderLayer(attention_heads, d, linear_units)
+            TransformerDecoderLayer(attention_heads, d, linear_units,
+                                    dropout_rate, self_attention_dropout_rate,
+                                    src_attention_dropout_rate)
             for _ in range(num_blocks))
         self.after_norm = nn.LayerNorm(d, eps=LN_EPS)
         self.output_layer = nn.Linear(d, vocab_size)
+
+    def forward(self, memory, memory_lens, ys_in, ys_in_lens):
+        """Teacher-forced forward: memory (B, Tenc, D), ys_in (B, L) ->
+        logits (B, L, V). Position i attends to the valid positions
+        <= i of ys_in and to the valid encoder frames."""
+        L = ys_in.shape[1]
+        causal = torch.ones(L, L, dtype=torch.bool,
+                            device=ys_in.device).tril()
+        tgt_mask = make_non_pad_mask(ys_in_lens, L)[:, None, :] & causal
+        mem_mask = make_non_pad_mask(memory_lens, memory.shape[1])[:, None]
+        x = self.pos_enc(self.embed(ys_in))
+        for layer in self.layers:
+            x = layer(x, tgt_mask, memory, mem_mask)
+        return self.output_layer(self.after_norm(x))
 
     def init_state(self, memory, memory_lens, batch: int, maxlen: int):
         """Decode state for ``batch`` hypothesis rows over memory (B, Tenc,

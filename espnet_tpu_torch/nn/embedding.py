@@ -26,28 +26,36 @@ def sinusoidal_table(length: int, d_model: int, centered: bool = False
 
 
 class PositionalEncoding(nn.Module):
-    """x -> x * sqrt(d) + PE, with the table kept for ``max_len`` rows."""
+    """x -> dropout(x * sqrt(d) + PE), with the table kept for ``max_len``
+    rows."""
 
-    def __init__(self, d_model: int, max_len: int = 2048):
+    def __init__(self, d_model: int, max_len: int = 2048,
+                 dropout_rate: float = 0.1):
         super().__init__()
         self.d_model = d_model
         self.register_buffer("pe", torch.from_numpy(
             sinusoidal_table(max_len, d_model)), persistent=False)
+        self.dropout = nn.Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
         """x (B, T, d) holds positions offset .. offset+T-1."""
         T = x.shape[1]
-        return x * math.sqrt(self.d_model) + self.pe[offset:offset + T]
+        return self.dropout(x * math.sqrt(self.d_model)
+                            + self.pe[offset:offset + T])
 
 
 class RelPositionalEncoding(nn.Module):
-    """x -> (x * sqrt(d), centred (1, 2T-1, d) table)."""
+    """x -> (dropout(x * sqrt(d)), dropout(centred (1, 2T-1, d) table)),
+    two independent dropout masks."""
 
-    def __init__(self, d_model: int):
+    def __init__(self, d_model: int, dropout_rate: float = 0.1):
         super().__init__()
         self.d_model = d_model
+        self.dropout = nn.Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor):
         pe = torch.from_numpy(sinusoidal_table(x.shape[1], self.d_model,
                                                centered=True))
-        return x * math.sqrt(self.d_model), pe[None].to(x.device, x.dtype)
+        pe = pe[None].to(x.device, x.dtype)
+        return (self.dropout(x * math.sqrt(self.d_model)),
+                self.dropout(pe))

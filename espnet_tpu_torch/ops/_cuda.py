@@ -27,11 +27,11 @@ PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 LIB_NAME = "libespnet_tpu_torch_kernels.so"
-SOURCES = ("flash_attn.cu", "logmel.cu")
+SOURCES = ("flash_attn.cu", "flash_attn_bwd.cu", "logmel.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"flash_attn_fwd": 0, "logmel_fwd": 0}
+LAUNCHES = {"flash_attn_fwd": 0, "flash_attn_bwd": 0, "logmel_fwd": 0}
 
 _lib = None
 BUILD_SECONDS = None  # wall time of the build this process ran, if any
@@ -107,10 +107,16 @@ def lib() -> ctypes.CDLL:
     if _lib is None:
         L = ctypes.CDLL(str(build()))
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        L.flash_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                     i64, i64, i64, i64, i,
-                                     ctypes.c_float, p]
-        L.flash_attn_fwd.restype = i
+        f32 = ctypes.c_float
+        L.flash_attn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                     i64, i64, i64, i64, i, f32, p]
+        L.flash_attn_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, p, p,
+                                         i, i, i, i, i, i64, i64, i64, i64,
+                                         i, f32, p]
+        L.flash_attn_bwd_dq.argtypes = [p, p, p, i, i, i, i, i, f32, p]
+        for fn in (L.flash_attn_fwd, L.flash_attn_bwd_dkv,
+                   L.flash_attn_bwd_dq):
+            fn.restype = i
         L.logmel_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
         L.logmel_fwd.restype = i
         _lib = L

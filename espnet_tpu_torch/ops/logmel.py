@@ -3,7 +3,9 @@
 Counterpart of espnet_tpu/ops/pallas/logmel_kernel.py:fused_logmel. On a
 CUDA tensor it launches ``logmel_fwd`` (csrc/logmel.cu); on a CPU tensor
 it runs ``fused_logmel_plain``: centred Hann STFT power by hop-segment
-accumulation, then log(max(power @ mel, 1e-10)).
+accumulation, then log(max(power @ mel, 1e-10)). The kernel has no
+backward, as the Pallas kernel has no VJP: on the card a wave that needs
+a gradient is refused rather than given a detached result.
 """
 
 from __future__ import annotations
@@ -39,6 +41,9 @@ def fused_logmel(wave, *, fs: int = 16000, n_fft: int = 512,
                                   hop_length=hop_length, n_mels=n_mels)
     if wave.device.type != "cuda":
         raise RuntimeError(f"fused_logmel: no kernel for {wave.device}")
+    if torch.is_grad_enabled() and wave.requires_grad:
+        raise RuntimeError("fused_logmel: the kernel has no backward; the "
+                           "wave must not require a gradient")
     if wave.dim() != 2 or wave.dtype != torch.float32:
         raise ValueError(f"fused_logmel: need a (B, S) float32 wave, got "
                          f"{tuple(wave.shape)} {wave.dtype}")

@@ -1,10 +1,12 @@
 """ASR task: build the model from a config dict (counterpart of
-espnet_tpu/tasks/asr.py:ASRTask.build_model and
-tasks/abs_task.py:build_model_from_file).
+espnet_tpu/tasks/asr.py:ASRTask and tasks/abs_task.py:build_model_from_file).
 
 Only what the flagship config names is built: the default frontend,
-GlobalMVN, a conformer encoder and a transformer decoder. Any other
-choice raises NotImplementedError.
+SpecAug, GlobalMVN, a conformer encoder and a transformer decoder. Any
+other choice raises NotImplementedError. The model comes out in training
+mode (dropout and SpecAug on); ``build_model_from_file`` puts it in eval
+mode for decoding. ``ASRTask`` adds the task's defaults and its
+preprocessor to the training spine of ``tasks/abs_task.py``.
 """
 
 from __future__ import annotations
@@ -15,8 +17,10 @@ from typing import Any, Dict
 import torch
 
 from espnet_tpu_torch import convert
+from espnet_tpu_torch.data.preprocessor import CommonPreprocessor
 from espnet_tpu_torch.frontends.default import DefaultFrontend, GlobalMVN
 from espnet_tpu_torch.models.asr import ASRModel
+from espnet_tpu_torch.tasks.abs_task import AbsTask
 from espnet_tpu_torch.utils.config import load_yaml
 
 
@@ -60,13 +64,18 @@ def build_model(cfg: Dict[str, Any]) -> ASRModel:
         raise NotImplementedError("interCTC and ctc_conf are not ported")
     decoder_conf = (dict(cfg.get("decoder_conf") or {})
                     if cfg.get("decoder", "transformer") else None)
+    specaug = _require(cfg, "specaug", {"specaug", None}, None)
     return ASRModel(
         vocab_size=len(token_list), token_list=token_list,
         frontend=DefaultFrontend(**dict(cfg.get("frontend_conf") or {})),
         normalize=stats,
         encoder_conf=dict(cfg.get("encoder_conf") or {}),
         decoder_conf=decoder_conf,
-        ctc_weight=mc.get("ctc_weight", 0.5))
+        ctc_weight=mc.get("ctc_weight", 0.5),
+        specaug_conf=(dict(cfg.get("specaug_conf") or {})
+                      if specaug == "specaug" else None),
+        lsm_weight=mc.get("lsm_weight", 0.0),
+        length_normalized_loss=mc.get("length_normalized_loss", False))
 
 
 def build_model_from_file(config_file, model_file, device):
@@ -91,3 +100,44 @@ def build_model_from_file(config_file, model_file, device):
         path = path / "params_f16.npz"
     convert.load_flax_params(model, convert.read_npz(path))
     return model.to(device).eval(), cfg
+
+
+class ASRTask(AbsTask):
+    name = "asr"
+
+    @classmethod
+    def task_defaults(cls) -> Dict[str, Any]:
+        return {
+            "token_list": None,
+            "token_type": "char",
+            "bpemodel": None,
+            "non_linguistic_symbols": [],
+            "cleaner": None,
+            "frontend": "default",
+            "frontend_conf": {"n_fft": 512, "hop_length": 128, "n_mels": 80},
+            "specaug": None,
+            "specaug_conf": {},
+            "normalize": "utterance_mvn",
+            "normalize_conf": {},
+            "stats_file": None,
+            "encoder": "transformer",
+            "encoder_conf": {},
+            "decoder": "transformer",
+            "decoder_conf": {},
+            "model_conf": {"ctc_weight": 0.5, "lsm_weight": 0.0,
+                           "interctc_weight": 0.0},
+        }
+
+    @classmethod
+    def build_model(cls, cfg: Dict[str, Any]) -> ASRModel:
+        return build_model(cfg)
+
+    @classmethod
+    def build_preprocess_fn(cls, cfg: Dict[str, Any], train: bool):
+        if cfg.get("token_list") is None:
+            return None
+        return CommonPreprocessor(
+            token_type=cfg.get("token_type", "char"),
+            token_list=read_token_list(cfg["token_list"]),
+            bpemodel=cfg.get("bpemodel"), text_cleaner=cfg.get("cleaner"),
+            non_linguistic_symbols=cfg.get("non_linguistic_symbols") or ())

@@ -1,20 +1,25 @@
-"""A YAML reader for the subset that the committed configs use.
+"""Configs: a YAML reader and writer for the subset that the configs use,
+and the resolution of defaults, a config file, overrides and
+``--key value`` command-line arguments.
 
-Counterpart of espnet_tpu/utils/config.py:load_yaml, without PyYAML. It
+Counterpart of espnet_tpu/utils/config.py, without PyYAML. The reader
 reads block maps, block lists (also a list right under its key at the
 key's own indent, as PyYAML writes them), nested ``- - x`` lists,
 anchors and aliases (``&id001`` / ``*id001``), the empty flow
 collections ``{}`` and ``[]``, and plain or quoted scalars resolved as
 YAML 1.1's safe loader resolves them: null, booleans, ints, floats and
 strings. Anything else (flow collections with content, block scalars,
-tags) raises ValueError.
+tags) raises ValueError. ``dump_yaml`` writes what the reader (and
+PyYAML's safe loader) reads back as the same value.
 """
 
 from __future__ import annotations
 
+import copy
+import math
 import re
 from pathlib import Path
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 _INT = re.compile(r"[-+]?(0|[1-9][0-9_]*)")
 _FLOAT = re.compile(r"[-+]?([0-9][0-9_]*)?\.[0-9_]*([eE][-+][0-9]+)?")
@@ -152,3 +157,120 @@ def loads_yaml(text: str) -> Any:
 
 def load_yaml(path) -> Dict[str, Any]:
     return loads_yaml(Path(path).read_text(encoding="utf-8")) or {}
+
+
+def _dump_scalar(v: Any) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if math.isnan(v):
+            return ".nan"
+        if math.isinf(v):
+            return ".inf" if v > 0 else "-.inf"
+        text = repr(v)
+        if "e" in text and "." not in text.split("e")[0]:
+            # YAML 1.1 reads "1e-05" as a string
+            mant, exp = text.split("e")
+            text = f"{mant}.0e{exp}"
+        return text
+    if isinstance(v, str):
+        return "'" + v.replace("'", "''") + "'"
+    raise ValueError(f"cannot write {type(v).__name__} as YAML")
+
+
+def _dump_lines(v: Any, indent: int) -> List[str]:
+    pad = " " * indent
+    if isinstance(v, dict) and v:
+        lines = []
+        for k, x in v.items():
+            key = _dump_scalar(str(k)) if not re.fullmatch(
+                r"[A-Za-z_][A-Za-z0-9_.\-]*", str(k)) else str(k)
+            if isinstance(x, (dict, list, tuple)) and x:
+                lines.append(f"{pad}{key}:")
+                lines += _dump_lines(x, indent + 2)
+            else:
+                lines.append(f"{pad}{key}: {_dump_one(x)}")
+        return lines
+    if isinstance(v, (list, tuple)) and v:
+        lines = []
+        for x in v:
+            if isinstance(x, (dict, list, tuple)) and x:
+                sub = _dump_lines(x, indent + 2)
+                lines.append(f"{pad}- {sub[0].lstrip()}")
+                lines += sub[1:]
+            else:
+                lines.append(f"{pad}- {_dump_one(x)}")
+        return lines
+    return [pad + _dump_one(v)]
+
+
+def _dump_one(v: Any) -> str:
+    if isinstance(v, dict):
+        return "{}"
+    if isinstance(v, (list, tuple)):
+        return "[]"
+    return _dump_scalar(v)
+
+
+def dumps_yaml(d: Dict[str, Any]) -> str:
+    return "\n".join(_dump_lines(d, 0)) + "\n"
+
+
+def dump_yaml(d: Dict[str, Any], path):
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(dumps_yaml(d), encoding="utf-8")
+
+
+def deep_update(base: Dict, overlay: Optional[Dict]) -> Dict:
+    out = copy.deepcopy(base)
+    for k, v in (overlay or {}).items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = deep_update(out[k], v)
+        else:
+            out[k] = copy.deepcopy(v)
+    return out
+
+
+def parse_cli_overrides(argv: List[str]) -> Dict[str, Any]:
+    """['--a.b', '3', '--c=x'] -> {"a": {"b": 3}, "c": "x"}; values read
+    as YAML scalars (numbers, booleans, null, [] and {})."""
+    out: Dict[str, Any] = {}
+    i = 0
+    while i < len(argv):
+        arg = argv[i]
+        if not arg.startswith("--"):
+            raise ValueError(f"expected --key, got {arg!r}")
+        key = arg[2:]
+        if "=" in key:
+            key, raw = key.split("=", 1)
+            i += 1
+        else:
+            if i + 1 >= len(argv):
+                raise ValueError(f"missing value for --{key}")
+            raw = argv[i + 1]
+            i += 2
+        node = out
+        *parents, leaf = key.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = _scalar(raw.strip())
+    return out
+
+
+def resolve_config(defaults: Dict[str, Any],
+                   config_path: Optional[str] = None,
+                   overrides: Optional[Dict[str, Any]] = None,
+                   argv: Optional[List[str]] = None) -> Dict[str, Any]:
+    """defaults <- the config file (``--config`` or config_path) <-
+    overrides <- the other command-line arguments."""
+    cli = parse_cli_overrides(argv) if argv else {}
+    config_path = cli.pop("config", config_path)
+    cfg = copy.deepcopy(defaults)
+    if config_path:
+        cfg = deep_update(cfg, load_yaml(config_path))
+    cfg = deep_update(cfg, overrides)
+    return deep_update(cfg, cli)

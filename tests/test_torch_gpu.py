@@ -8,7 +8,9 @@ skip tests/conftest.py, which sets JAX up:
 Each is marked ``gpu`` and skips, with its reason, where there is no card.
 The kernels are held against their plain PyTorch versions on the same
 inputs (fp32 sums in another order: 1e-4 for attention outputs of O(1),
-1e-3 in the log domain for log-mel energies).
+1e-3 in the log domain for log-mel energies, and 2e-5 of each
+gradient's own scale for the attention backward, whose sums run over at
+most Tq or Tk terms).
 """
 
 from pathlib import Path
@@ -17,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from espnet_tpu_torch import convert
 from espnet_tpu_torch.ops import _cuda
 from espnet_tpu_torch.ops.attention import (fused_attention,
                                             fused_attention_plain)
@@ -89,6 +92,130 @@ def test_speech2text_on_the_card_goes_through_both_kernels():
               beam_size=10, ctc_weight=0.3)
     _cuda.reset_launch_counts()
     out = Speech2Text(**kw)(speech, lengths)
-    assert _cuda.LAUNCHES == {"flash_attn_fwd": 6, "logmel_fwd": 1}
+    assert _cuda.LAUNCHES == {"flash_attn_fwd": 6, "flash_attn_bwd": 0,
+                              "logmel_fwd": 1}
     ref = Speech2Text(device="cpu", **kw)(speech, lengths)
     assert [n[0][2] for n in out] == [n[0][2] for n in ref]
+
+
+def _relative_err(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Tq,Tk,d,causal,bias_kind", [
+    (25, 4, 145, 145, 64, False, "full"),
+    (25, 4, 145, 145, 64, False, "padding"),
+    (2, 3, 7, 70, 40, True, "full"),
+    (2, 3, 70, 7, 40, True, "full"),
+    (3, 2, 130, 129, 128, False, None),
+])
+def test_flash_attn_backward_kernel_matches_plain(B, H, Tq, Tk, d, causal,
+                                                  bias_kind):
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = (torch.randn(B, H, T, d, generator=g, device="cuda")
+               for T in (Tq, Tk, Tk))
+    lens = torch.randint(1, Tk + 1, (B,), generator=g, device="cuda")
+    pad = torch.where(torch.arange(Tk, device="cuda")[None] < lens[:, None],
+                      0.0, -1e9)[:, None, None, :]
+    bias = {"full": lambda: torch.randn(B, H, Tq, Tk, generator=g,
+                                        device="cuda") + pad,
+            "padding": lambda: pad.clone(), None: lambda: None}[bias_kind]()
+    ins = [t for t in (q, k, v, bias) if t is not None]
+    for t in ins:
+        t.requires_grad_(True)
+    dout = torch.randn(B, H, Tq, d, generator=g, device="cuda")
+    n0 = dict(_cuda.LAUNCHES)
+    out = fused_attention(q, k, v, bias, causal=causal, sm_scale=d ** -0.5)
+    grads = torch.autograd.grad(out, ins, dout)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["flash_attn_fwd"] == n0["flash_attn_fwd"] + 1
+    assert _cuda.LAUNCHES["flash_attn_bwd"] == n0["flash_attn_bwd"] + 2
+    ref = torch.autograd.grad(
+        fused_attention_plain(q, k, v, bias, causal=causal,
+                              sm_scale=d ** -0.5), ins, dout)
+    for a, b in zip(grads, ref):
+        assert a.shape == b.shape
+        assert _relative_err(a, b) < 2e-5
+
+
+@pytest.mark.gpu
+def test_attention_gradient_on_the_card_reaches_every_projection():
+    # the forward kernel's output once had no grad_fn: the projections of
+    # q, k, v and the position terms got no gradient through attention
+    _cuda_or_skip()
+    from espnet_tpu_torch.nn.attention import RelPositionMultiHeadedAttention
+    from espnet_tpu_torch.nn.embedding import RelPositionalEncoding
+    torch.manual_seed(0)
+    cpu = RelPositionMultiHeadedAttention(4, 64)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.normal_(0.0, 0.2)
+    card = RelPositionMultiHeadedAttention(4, 64).cuda()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(3, 37, 64)
+    _, pos = RelPositionalEncoding(64).eval()(x)
+    mask = (torch.arange(37)[None] < torch.tensor([37, 20, 9])[:, None])
+    outs = {}
+    for name, mod, dev in (("cpu", cpu, "cpu"), ("card", card, "cuda")):
+        out = mod(*[x.to(dev)] * 3, pos.to(dev), mask[:, None].to(dev))
+        (out * torch.linspace(-1, 1, 64, device=dev)).sum().backward()
+        outs[name] = {n: p.grad.cpu() for n, p in mod.named_parameters()}
+    for n in ("linear_q.weight", "linear_k.weight", "linear_v.weight",
+              "linear_pos.weight", "pos_bias_u", "pos_bias_v"):
+        assert float(outs["card"][n].abs().max()) > 0, n
+        assert _relative_err(outs["card"][n], outs["cpu"][n]) < 1e-4, n
+
+
+@pytest.mark.gpu
+def test_logmel_kernel_refuses_a_wave_that_needs_a_gradient():
+    _cuda_or_skip()
+    wave = torch.randn(2, 4000, device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_logmel(wave)
+    with torch.no_grad():
+        assert fused_logmel(wave).grad_fn is None
+
+
+@pytest.mark.gpu
+def test_two_train_steps_of_the_entry_point_on_the_card(tmp_path):
+    _cuda_or_skip()
+    from espnet_tpu_torch.bin import asr_train
+    from espnet_tpu_torch.data.synth_speech import SynthSpeechCorpus
+    from espnet_tpu_torch.utils.config import dump_yaml
+    SynthSpeechCorpus().materialize(tmp_path / "data", n_train=6, n_valid=3,
+                                    n_test=0)
+    data = {split: [f"{tmp_path}/data/{split}/wav.scp,speech,sound",
+                    f"{tmp_path}/data/{split}/text,text,text"]
+            for split in ("train", "valid")}
+    cfg = {
+        "output_dir": str(tmp_path / "exp"), "max_epoch": 1,
+        "num_iters_per_epoch": 2, "batch_type": "sorted", "batch_size": 3,
+        "optim": "adam", "optim_conf": {"lr": 0.002},
+        "scheduler": "warmuplr", "scheduler_conf": {"warmup_steps": 600},
+        "train_data_path_and_name_and_type": data["train"],
+        "valid_data_path_and_name_and_type": data["valid"],
+        "token_list": str(ASSET / "tokens.txt"), "normalize": "global_mvn",
+        "stats_file": str(ASSET / "feats_stats.npz"), "specaug": "specaug",
+        "encoder": "conformer",
+        "encoder_conf": {"output_size": 64, "attention_heads": 4,
+                         "linear_units": 128, "num_blocks": 2,
+                         "cnn_module_kernel": 7},
+        "decoder": "transformer",
+        "decoder_conf": {"attention_heads": 4, "linear_units": 128,
+                         "num_blocks": 1},
+        "model_conf": {"ctc_weight": 0.3, "lsm_weight": 0.1}}
+    dump_yaml(cfg, tmp_path / "train.yaml")
+    _cuda.reset_launch_counts()
+    _, trainer = asr_train.main(["--config", str(tmp_path / "train.yaml")])
+    assert next(trainer.model.parameters()).device.type == "cuda"
+    assert len(trainer.step_stats) == 2
+    for stats in trainer.step_stats:
+        assert np.isfinite(stats["loss"]) and stats["skipped"] == 0.0
+    # 2 steps x 2 blocks forward + 1 validation batch x 2 blocks
+    assert _cuda.LAUNCHES == {"flash_attn_fwd": 6, "flash_attn_bwd": 8,
+                              "logmel_fwd": 3}
+    flat = convert.state_dict_to_flax(trainer.model)
+    assert all(np.isfinite(v).all() for v in flat.values())
+    assert (tmp_path / "exp" / "checkpoint" / "params.pkl").exists()

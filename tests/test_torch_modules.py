@@ -140,10 +140,12 @@ def test_frontend_and_global_mvn(small, parity):
 def test_positional_encodings():
     x = np.random.RandomState(2).randn(2, 9, D).astype(np.float32)
     jx, jpe = JaxRelPE(D).apply({}, jnp.asarray(x))
-    tx, tpe = RelPositionalEncoding(D)(_t(x))
+    # eval(): the encodings now carry dropout, off as in JAX's default
+    tx, tpe = RelPositionalEncoding(D).eval()(_t(x))
     _close(tx, jx, atol=1e-5)
     _close(tpe, jpe, atol=1e-6)
-    _close(PositionalEncoding(D)(_t(x)), JaxPE(D).apply({}, jnp.asarray(x)),
+    _close(PositionalEncoding(D).eval()(_t(x)),
+           JaxPE(D).apply({}, jnp.asarray(x)),
            atol=1e-5)
     s = np.random.RandomState(3).randn(2, 3, 9, 17).astype(np.float32)
     np.testing.assert_array_equal(rel_shift(_t(s)).numpy(),
