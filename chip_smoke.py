@@ -12,9 +12,11 @@ Phases, each printing one JSON line:
    shapes of its path, with the stated tolerance: the attention forward
    at the decode shape, its backward at the train shape (with the real
    rel-pos + padding bias of the first conformer block, which needs a
-   gradient) and on a small causal case with Tq != Tk, and the log-mel;
-   each kernel is timed beside the plain version and one PyTorch library
-   call (a yardstick only);
+   gradient) and on a small causal case with Tq != Tk, the log-mel, and
+   the RNN-T lattice sweeps with their closed-form gradient on the
+   transducer's real joint logits of its first train batch and on a small
+   ragged case; each kernel is timed beside the plain version and, where
+   one exists, one PyTorch library call (a yardstick only);
 4. main_path: the flagship hybrid CTC/attention Conformer
    (assets/synth_asr_flagship) built by Speech2Text on the card decodes the
    first 64 held-out SynthSpeechCorpus utterances in fp32 (beam 10, CTC
@@ -31,10 +33,22 @@ Phases, each printing one JSON line:
    validation loss;
 6. grad_check: one fixed batch through the flagship in eval mode, on the
    card (kernels) and on the CPU (plain versions): the loss and every
-   parameter's gradient must agree.
+   parameter's gradient must agree;
+7. transducer_decode: the Conformer transducer
+   (assets/synth_asr_transducer) built by Speech2TextTransducer on the
+   card decodes the same 64 utterances (beam 5), as main_path does;
+8. transducer_train: its entry point
+   (espnet_tpu_torch.bin.asr_transducer_train.main) on the transducer
+   config over the same data dirs, as train_path does;
+9. transducer_grad_check: grad_check for the transducer;
+10. determinism: for each of the two models, two 3-step runs of its entry
+    point from one seed (dropout and SpecAug on) must end with
+    bit-identical parameters, and a run stopped after step 2 and resumed
+    from its checkpoint must equal them at step 3; no CTC gradient may
+    come from torch's CTC loss.
 
 Then the nvidia-smi line, one {"kernels": [...]} line (errors, times and
-bounds of phase 3, launches from phases 4 and 5) and last
+bounds of phase 3, launches from the paths that run each kernel) and last
 {"ok": true, "device": {...}}. Without a card, or when any phase fails,
 it exits non-zero and prints no result.
 """
@@ -53,6 +67,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 ASSET = ROOT / "assets" / "synth_asr_flagship"
+TRANSDUCER = ROOT / "assets" / "synth_asr_transducer"
 N_UTTS = 64
 BEAM = 10
 CTC_WEIGHT = 0.3
@@ -86,6 +101,19 @@ RELOAD_TOL = 1e-5
 # against 1e-4 of the largest gradient of the model instead
 GRAD_TOL = 1e-3
 GRAD_BATCH = 8
+# the RNN-T sweeps: the kernel and the plain version take the same fp32
+# steps in the same order (a log-add per edge along one diagonal chain),
+# so they should agree to ~1e-6 relative; nll, alpha and beta (inside
+# each sample's lattice) against their largest entry, and the
+# closed-form dlogits against its largest entry
+K3_TOL = 1e-5
+TRANSDUCER_BEAM = 5
+# the JAX package's own fp32 decode of these 64 utterances (same
+# padding, beam 5, its Speech2TextTransducer on a CPU): WER 4/335 =
+# 1.194%; the port may be at most 0.5 points above it, and at most 3%
+JAX_TRANSDUCER_WER = 4 / 335
+MAX_TRANSDUCER_WER = min(JAX_TRANSDUCER_WER + 0.005, 0.03)
+DETERMINISM_STEPS = 3
 
 
 def emit(obj):
@@ -131,14 +159,13 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
 
-def train_config(workdir: Path):
-    """The flagship config with its data, token list, stats and initial
-    weights pointed at this run's files."""
-    from espnet_tpu_torch.tasks.asr import ASRTask
+def train_config(task, asset: Path, workdir: Path, name: str, **extra):
+    """The asset's config with its data, token list, stats and initial
+    weights pointed at this run's files, written to workdir/name.yaml."""
     from espnet_tpu_torch.utils.config import dump_yaml, resolve_config
     data = workdir / "data"
-    cfg = resolve_config(ASRTask.default_config(), ASSET / "config.yaml", {
-        "output_dir": str(workdir / "exp"),
+    cfg = resolve_config(task.default_config(), asset / "config.yaml", {
+        "output_dir": str(workdir / name),
         "train_data_path_and_name_and_type": [
             f"{data}/train/wav.scp,speech,sound",
             f"{data}/train/text,text,text"],
@@ -146,13 +173,146 @@ def train_config(workdir: Path):
             f"{data}/valid/wav.scp,speech,sound",
             f"{data}/valid/text,text,text"],
         "train_shape_file": [], "valid_shape_file": [],
-        "token_list": str(ASSET / "tokens.txt"),
-        "stats_file": str(ASSET / "feats_stats.npz"),
-        "init_param": str(ASSET / "params_f16.npz"),
+        "token_list": str(asset / "tokens.txt"),
+        "stats_file": str(asset / "feats_stats.npz"),
+        "init_param": str(asset / "params_f16.npz"),
         "batch_size": TRAIN_BATCH, "max_epoch": 1,
-        "num_iters_per_epoch": TRAIN_STEPS, "log_interval": 1})
-    dump_yaml(cfg, workdir / "train.yaml")
-    return cfg
+        "num_iters_per_epoch": TRAIN_STEPS, "log_interval": 1, **extra})
+    dump_yaml(cfg, workdir / f"{name}.yaml")
+    return cfg, workdir / f"{name}.yaml"
+
+
+def first_batch(iter_factory, device):
+    """The first batch of epoch 1, collated and on ``device``."""
+    from espnet_tpu_torch.train.trainer import to_device
+    keys = iter_factory.epoch_batches(1)[0]
+    _, batch = iter_factory.collate_fn([iter_factory.dataset[k]
+                                        for k in keys])
+    return to_device(batch, device)
+
+
+def train_run(torch, _cuda, entry_main, cfg_path: Path, model_cls):
+    """Train through an entry point with every launch count at 0 first.
+    A forward pre-hook on the model notes the counts at each forward, so
+    a train step's launches are the difference to the next forward (its
+    backward and update lie between). -> the trainer, launches per step,
+    all launches, wall seconds, peak device bytes."""
+    snaps = []
+
+    def note(module, args):
+        if isinstance(module, model_cls):
+            snaps.append((module.training, dict(_cuda.LAUNCHES)))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(note)
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        _, trainer = entry_main(["--config", str(cfg_path)])
+    finally:
+        handle.remove()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    snaps.append((None, launches))
+    per_step = [{n: nxt[n] - cur[n] for n in cur}
+                for (training, cur), (_, nxt) in zip(snaps, snaps[1:])
+                if training]
+    return (trainer, per_step, launches, wall,
+            torch.cuda.max_memory_allocated())
+
+
+def check_steps(steps, per_step, want, loss_keys):
+    """TRAIN_STEPS finite, unskipped steps with launches ``want`` each."""
+    if len(steps) != TRAIN_STEPS or len(per_step) != TRAIN_STEPS:
+        raise AssertionError(f"{len(steps)} train steps, not {TRAIN_STEPS}")
+    for s, n in zip(steps, per_step):
+        if not all(math.isfinite(s[k]) for k in loss_keys + ("grad_norm",)):
+            raise AssertionError(f"a non-finite train step: {s}")
+        if s["skipped"]:
+            raise AssertionError(f"a train step was skipped: {s}")
+        if n != want:
+            raise AssertionError(f"launches per step {n}, not {want}")
+
+
+def grad_check(torch, asset: Path, build, batch) -> dict:
+    """One backward of the asset's model in eval mode on ``batch``, on the
+    card and on the CPU: the loss and each parameter's gradient must
+    agree within GRAD_TOL of its scale (the larger of its own largest
+    entry and 1e-4 of the model's largest gradient)."""
+    from espnet_tpu_torch import convert
+    from espnet_tpu_torch.tasks.asr import build_model_from_file
+    from espnet_tpu_torch.train.trainer import to_device
+    losses, grads = {}, {}
+    for dev in ("cuda", "cpu"):
+        m, _ = build_model_from_file(asset / "config.yaml", asset, dev,
+                                     build=build)
+        loss, _, _ = m(**to_device(batch, dev))
+        loss.backward()
+        losses[dev] = loss.item()
+        grads[dev] = convert.state_dict_to_flax(m, grad=True)
+    top = max(float(abs(g).max()) for g in grads["cpu"].values())
+    ratios = {n: float(abs(grads["cuda"][n] - g).max())
+              / max(float(abs(g).max()), 1e-4 * top)
+              for n, g in grads["cpu"].items()}
+    worst = max(ratios, key=ratios.get)
+    out = {"batch": GRAD_BATCH, "loss_card": losses["cuda"],
+           "loss_cpu": losses["cpu"], "max_grad_ratio": ratios[worst],
+           "worst_param": worst, "n_params": len(ratios), "tol": GRAD_TOL}
+    if not ratios[worst] <= GRAD_TOL:
+        raise AssertionError(f"card and CPU gradients disagree: {worst} "
+                             f"{ratios[worst]}")
+    if not abs(losses["cuda"] / losses["cpu"] - 1) <= GRAD_TOL:
+        raise AssertionError(f"card and CPU losses disagree: {losses}")
+    return out
+
+
+def ctc_backward_nodes(loss) -> list:
+    """Names of the autograd nodes under ``loss`` that belong to torch's
+    own CTC loss."""
+    seen, todo = set(), [loss.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is not None and fn not in seen:
+            seen.add(fn)
+            todo.extend(f for f, _ in fn.next_functions)
+    return sorted({type(fn).__name__ for fn in seen
+                   if "ctcloss" in type(fn).__name__.lower()})
+
+
+def determinism(torch, task, asset: Path, workdir: Path, name: str) -> dict:
+    """Two whole runs of DETERMINISM_STEPS steps (one per epoch) from one
+    seed, and one stopped an epoch early and resumed: the three must end
+    with bit-identical parameters."""
+    import numpy as np
+    from espnet_tpu_torch.train.checkpoint import load_checkpoint
+    finals = {}
+    for run_name, stops in (("a", [DETERMINISM_STEPS]),
+                            ("b", [DETERMINISM_STEPS]),
+                            ("resumed", [DETERMINISM_STEPS - 1,
+                                         DETERMINISM_STEPS])):
+        for i, max_epoch in enumerate(stops):
+            cfg, path = train_config(
+                task, asset, workdir, f"det_{name}_{run_name}",
+                num_iters_per_epoch=1, max_epoch=max_epoch,
+                valid_data_path_and_name_and_type=[], resume=i > 0)
+            task.main(argv=["--config", str(path)])
+        finals[run_name] = load_checkpoint(Path(cfg["output_dir"])
+                                           / "checkpoint")
+    ref, _, ref_meta = finals["a"]
+    out = {"steps": DETERMINISM_STEPS, "n_params": len(ref)}
+    for run_name in ("b", "resumed"):
+        flat, _, meta = finals[run_name]
+        differ = sorted(k for k in ref if not np.array_equal(flat[k],
+                                                             ref[k]))
+        out[f"{run_name}_differs"] = differ[:5]
+        out[f"{run_name}_n_differ"] = len(differ)
+        if differ or meta["epoch"] != ref_meta["epoch"]:
+            raise AssertionError(f"{name}: run {run_name} differs from run "
+                                 f"a in {len(differ)} parameters, e.g. "
+                                 f"{differ[:3]}")
+    return out
 
 
 def main():
@@ -171,11 +331,14 @@ def run(torch, workdir: Path):
     import torch.nn.functional as F
 
     from espnet_tpu_torch import convert
-    from espnet_tpu_torch.bin import asr_train
+    from espnet_tpu_torch.bin import asr_train, asr_transducer_train
     from espnet_tpu_torch.bin.asr_inference import Speech2Text
+    from espnet_tpu_torch.bin.asr_transducer_inference import \
+        Speech2TextTransducer
     from espnet_tpu_torch.data.synth_speech import SynthSpeechCorpus
     from espnet_tpu_torch.models.asr import ASRModel
-    from espnet_tpu_torch.ops import _cuda
+    from espnet_tpu_torch.models.transducer import TransducerModel
+    from espnet_tpu_torch.ops import _cuda, rnnt
     from espnet_tpu_torch.ops.attention import (fused_attention,
                                                 fused_attention_bwd,
                                                 fused_attention_bwd_plain,
@@ -184,10 +347,11 @@ def run(torch, workdir: Path):
     from espnet_tpu_torch.ops.logmel import (fused_logmel,
                                              fused_logmel_plain)
     from espnet_tpu_torch.ops.mel import mel_matrix
-    from espnet_tpu_torch.tasks.asr import (ASRTask, build_model,
-                                            build_model_from_file)
+    from espnet_tpu_torch.tasks import asr_transducer
+    from espnet_tpu_torch.tasks.asr import ASRTask, build_model
+    from espnet_tpu_torch.tasks.asr_transducer import ASRTransducerTask
     from espnet_tpu_torch.train.checkpoint import load_checkpoint
-    from espnet_tpu_torch.train.trainer import evaluate, to_device
+    from espnet_tpu_torch.train.trainer import evaluate
     from espnet_tpu_torch.utils.scoring import score_corpus
 
     # 1. device
@@ -223,13 +387,21 @@ def run(torch, workdir: Path):
     SynthSpeechCorpus().materialize(workdir / "data", n_train=N_TRAIN,
                                     n_valid=N_VALID, n_test=0)
     data_s = time.perf_counter() - t0
-    cfg = train_config(workdir)
+    cfg, cfg_path = train_config(ASRTask, ASSET, workdir, "flagship")
     train_if = ASRTask.build_iter_factory(cfg, train=True)
     valid_if = ASRTask.build_iter_factory(cfg, train=False)
-    first = train_if.epoch_batches(1)[0]
-    _, train_batch = train_if.collate_fn([train_if.dataset[k]
-                                          for k in first])
-    train_batch = to_device(train_batch, "cuda")
+    train_batch = first_batch(train_if, "cuda")
+
+    # the transducer's model, config and first train batch (same data)
+    s2tt = Speech2TextTransducer(train_config=TRANSDUCER / "config.yaml",
+                                 model_file=TRANSDUCER,
+                                 beam_size=TRANSDUCER_BEAM)
+    tmodel = s2tt.model
+    tcfg, tcfg_path = train_config(ASRTransducerTask, TRANSDUCER, workdir,
+                                   "transducer")
+    ttrain_if = ASRTransducerTask.build_iter_factory(tcfg, train=True)
+    tvalid_if = ASRTransducerTask.build_iter_factory(tcfg, train=False)
+    ttrain_batch = first_batch(ttrain_if, "cuda")
 
     # 3. kernels against their plain versions, at the paths' shapes: the
     # wave batch, the first conformer block's attention inputs of the
@@ -340,6 +512,55 @@ def run(torch, workdir: Path):
     except RuntimeError as e:   # a yardstick only: no backend may take it
         k1b_library_ms, k1b_library_note = None, str(e)[:300]
 
+    # K3: the lattice sweeps on the transducer's joint logits of its first
+    # train batch (real ragged T_b and U_b), and on a small ragged case
+    # with U_b = 0 and T_b < T; nll, alpha, beta and the closed-form
+    # dlogits against the plain sweeps plus the same assembly
+    def k3_case(logits, labels, tl, ul):
+        lat = rnnt.lattices(logits, labels, tl, ul)
+        alpha, nll = rnnt.rnnt_alpha(*lat, tl, ul)
+        beta = rnnt.rnnt_beta(*lat, tl, ul)
+        alpha0, nll0 = rnnt.rnnt_alpha_plain(*lat, tl, ul)
+        beta0 = rnnt.rnnt_beta_plain(*lat, tl, ul)
+        grad = rnnt.rnnt_grad(logits, labels, *lat, alpha, beta, nll, tl,
+                              ul)
+        grad0 = rnnt.rnnt_grad(logits, labels, *lat, alpha0, beta0, nll0,
+                               tl, ul)
+        inside = alpha0 > rnnt.NEG_INF / 2
+        if not (torch.equal(inside, alpha > rnnt.NEG_INF / 2)
+                and torch.equal(inside, beta > rnnt.NEG_INF / 2)
+                and torch.equal(inside, beta0 > rnnt.NEG_INF / 2)):
+            raise AssertionError("rnnt sweeps: the lattices' extents differ")
+        errs = {"nll": (nll, nll0), "alpha": (alpha[inside], alpha0[inside]),
+                "beta": (beta[inside], beta0[inside]),
+                "dlogits": (grad, grad0)}
+        return lat, {key: {"max_abs_err": float((a - b).abs().max()),
+                           "rel_err": rel_err(a, b)}
+                     for key, (a, b) in errs.items()}
+
+    with torch.no_grad():
+        enc, enc_lens = tmodel.encode(ttrain_batch["speech"],
+                                      ttrain_batch["speech_lengths"])
+        text, text_lens = ttrain_batch["text"], ttrain_batch["text_lengths"]
+        tlogits = tmodel.lattice_logits(enc, text)
+        k3_lat, k3_errs = {}, {}
+        k3_lat["train"], k3_errs["train"] = k3_case(tlogits, text, enc_lens,
+                                                    text_lens)
+        g3 = torch.Generator(device="cuda").manual_seed(3)
+        k3_lat["ragged"], k3_errs["ragged"] = k3_case(
+            torch.randn(3, 7, 5, 6, generator=g3, device="cuda"),
+            torch.randint(1, 6, (3, 4), generator=g3, device="cuda"),
+            torch.tensor([7, 1, 4], device="cuda"),
+            torch.tensor([0, 4, 2], device="cuda"))
+    k3_err = max(e["rel_err"] for case in k3_errs.values()
+                 for e in case.values())
+    Bk, Tk3, U1k, Vk = tlogits.shape
+    k3_args = (*k3_lat["train"], enc_lens, text_lens)
+    # the cells inside each sample's lattice: the sweeps' data-dependent
+    # work, ~9 operations each (two adds and a log-add)
+    k3_cells = float(((enc_lens.clamp(max=Tk3))
+                      * (text_lens.clamp(max=U1k - 1) + 1)).sum())
+
     Bw, S = speech.shape
     frames = Bw * out2.shape[1]
     nf, n_fft = fe.n_fft // 2 + 1, fe.n_fft
@@ -352,13 +573,18 @@ def run(torch, workdir: Path):
         {"name": "logmel_fwd", "shape": [Bw, S], "tol": K2_TOL,
          "min_mel": K2_MIN_MEL,
          "max_abs_err_all_frames": float((out2 - ref2).abs().max())},
+        {"name": "rnnt_alpha+rnnt_beta", "shape": [Bk, Tk3, U1k, Vk],
+         "tol": K3_TOL, "tol_of": "max abs err / max |plain|",
+         "T_b": enc_lens.tolist(), "U_b": text_lens.tolist(),
+         "cases": k3_errs},
     ]
     # the least work of each function, for its bound: K1's two products
     # of the attention; K1b's five (q k^T, do v^T, P^T do, dS^T q, dS k)
     # with q, k, v, o, do and the bias read and dq, dk, dv and dbias
     # written; for K2 not the dense DFT the kernel does but an FFT
     # (2.5 N log2 N per frame), the window, the power and only the
-    # nonzero mel weights
+    # nonzero mel weights; for K3 the blank and emit entries inside each
+    # sample's lattice read, the whole (B, T, U+1) lattice written
     kernels = [
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": "espnet_tpu_torch/csrc/flash_attn.cu",
@@ -392,6 +618,31 @@ def run(torch, workdir: Path):
                             + 3 * nf + 2 * mel_nnz + fe.n_mels),
          "bytes": 4.0 * (Bw * S + n_fft + mel_nnz
                          + frames * fe.n_mels)},
+        {"name": "rnnt_alpha", "route": "cuda",
+         "source": "espnet_tpu_torch/csrc/rnnt.cu",
+         "replaces": ("espnet_tpu/ops/pallas/rnnt_kernel.py:53 (_alpha_kernel"
+                      ", launched by _sweep's pallas_call :118)"),
+         "max_abs_err": max(k3_errs["train"][key]["max_abs_err"]
+                            for key in ("alpha", "nll")),
+         "ms": time_ms(torch, lambda: rnnt.rnnt_alpha(*k3_args)),
+         "plain_ms": time_ms(torch, lambda: rnnt.rnnt_alpha_plain(*k3_args)),
+         "library_ms": None,
+         "library_note": ("no PyTorch call computes the RNN-T loss "
+                          "(torchaudio's rnnt_loss is not installed here)"),
+         "flops": 9.0 * k3_cells,
+         "bytes": 4.0 * (2 * k3_cells + Bk * Tk3 * U1k + Bk)},
+        {"name": "rnnt_beta", "route": "cuda",
+         "source": "espnet_tpu_torch/csrc/rnnt.cu",
+         "replaces": ("espnet_tpu/ops/pallas/rnnt_kernel.py:75 (_beta_kernel"
+                      ", launched by _sweep's pallas_call :118)"),
+         "max_abs_err": k3_errs["train"]["beta"]["max_abs_err"],
+         "ms": time_ms(torch, lambda: rnnt.rnnt_beta(*k3_args)),
+         "plain_ms": time_ms(torch, lambda: rnnt.rnnt_beta_plain(*k3_args)),
+         "library_ms": None,
+         "library_note": ("no PyTorch call computes the RNN-T loss "
+                          "(torchaudio's rnnt_loss is not installed here)"),
+         "flops": 9.0 * k3_cells,
+         "bytes": 4.0 * (2 * k3_cells + Bk * Tk3 * U1k)},
     ]
     for kern in kernels:
         bound(kern)
@@ -402,6 +653,8 @@ def run(torch, workdir: Path):
         raise AssertionError(f"flash_attn_bwd disagrees: {k1b_errs}")
     if not k2_err <= K2_TOL:
         raise AssertionError(f"logmel_fwd disagrees: {k2_err}")
+    if not k3_err <= K3_TOL:
+        raise AssertionError(f"rnnt sweeps disagree: {k3_errs}")
 
     # 4. main path: one warm-up decode, then the counted and timed one,
     # then REPEATS more timed ones for the spread
@@ -449,38 +702,13 @@ def run(torch, workdir: Path):
         raise AssertionError(f"WER {wer} above {MAX_WER}")
 
     # 5. train path: the flagship's validation before, then the entry
-    # point; a forward pre-hook on the model notes the launch counts at
-    # each forward, so a train step's launches are the difference to the
-    # next forward (its backward and update lie between)
+    # point, then a reload of its checkpoint into a fresh model
     before = evaluate(model, valid_if, "cuda")
-    snaps = []
-
-    def note(module, args):
-        if isinstance(module, ASRModel):
-            snaps.append((module.training, dict(_cuda.LAUNCHES)))
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    handle = torch.nn.modules.module.register_module_forward_pre_hook(note)
-    _cuda.reset_launch_counts()
-    t0 = time.perf_counter()
-    try:
-        _, trainer = asr_train.main(["--config",
-                                     str(workdir / "train.yaml")])
-    finally:
-        handle.remove()
-    torch.cuda.synchronize()
-    train_wall = time.perf_counter() - t0
-    train_launches = dict(_cuda.LAUNCHES)
-    peak_bytes = torch.cuda.max_memory_allocated()
-    snaps.append((None, train_launches))
-    per_step = [{n: nxt[n] - cur[n] for n in cur}
-                for (training, cur), (_, nxt) in zip(snaps, snaps[1:])
-                if training]
+    trainer, per_step, train_launches, train_wall, peak_bytes = train_run(
+        torch, _cuda, asr_train.main, cfg_path, ASRModel)
     steps = trainer.step_stats
     after = trainer.reporter.stats[1]["valid"]
-    # the checkpoint reloaded into a fresh model gives the same validation
-    flat, _, meta = load_checkpoint(workdir / "exp" / "checkpoint")
+    flat, _, meta = load_checkpoint(Path(cfg["output_dir"]) / "checkpoint")
     fresh = convert.load_flax_params(build_model(cfg), flat).to("cuda")
     reloaded = evaluate(fresh, valid_if, "cuda")
     step_ms = [1e3 * s["train_time"] for s in steps]
@@ -496,17 +724,9 @@ def run(torch, workdir: Path):
           "launches": train_launches,
           "valid_before": before, "valid_after": after,
           "valid_reloaded": reloaded, "checkpoint_epoch": meta["epoch"]})
-    want = {"flash_attn_fwd": 6, "flash_attn_bwd": 12, "logmel_fwd": 1}
-    if len(steps) != TRAIN_STEPS or len(per_step) != TRAIN_STEPS:
-        raise AssertionError(f"{len(steps)} train steps, not {TRAIN_STEPS}")
-    for s, n in zip(steps, per_step):
-        if not all(math.isfinite(s[k]) for k in ("loss", "loss_ctc",
-                                                 "loss_att", "grad_norm")):
-            raise AssertionError(f"a non-finite train step: {s}")
-        if s["skipped"]:
-            raise AssertionError(f"a train step was skipped: {s}")
-        if n != want:
-            raise AssertionError(f"launches per step {n}, not {want}")
+    want = {"flash_attn_fwd": 6, "flash_attn_bwd": 12, "logmel_fwd": 1,
+            "rnnt_alpha": 0, "rnnt_beta": 0}
+    check_steps(steps, per_step, want, ("loss", "loss_ctc", "loss_att"))
     if not after["acc"] >= before["acc"] - ACC_MARGIN:
         raise AssertionError(f"validation accuracy fell: {before['acc']} -> "
                              f"{after['acc']}")
@@ -517,43 +737,136 @@ def run(torch, workdir: Path):
     # 6. one step's gradients, card against CPU, on a fixed batch
     _, batch = valid_if.collate_fn([valid_if.dataset[k] for k in
                                     valid_if.epoch_batches(0)[0][:GRAD_BATCH]])
-    losses, grads = {}, {}
-    for dev in ("cuda", "cpu"):
-        m, _ = build_model_from_file(ASSET / "config.yaml", ASSET, dev)
-        loss, _, _ = m(**to_device(batch, dev))
-        loss.backward()
-        losses[dev] = loss.item()
-        grads[dev] = convert.state_dict_to_flax(m, grad=True)
-    top = max(float(abs(g).max()) for g in grads["cpu"].values())
-    ratios = {n: float(abs(grads["cuda"][n] - g).max())
-              / max(float(abs(g).max()), 1e-4 * top)
-              for n, g in grads["cpu"].items()}
-    worst = max(ratios, key=ratios.get)
-    emit({"phase": "grad_check", "batch": GRAD_BATCH,
-          "loss_card": losses["cuda"], "loss_cpu": losses["cpu"],
-          "max_grad_ratio": ratios[worst], "worst_param": worst,
-          "n_params": len(ratios), "tol": GRAD_TOL})
-    if not ratios[worst] <= GRAD_TOL:
-        raise AssertionError(f"card and CPU gradients disagree: {worst} "
-                             f"{ratios[worst]}")
-    if not abs(losses["cuda"] / losses["cpu"] - 1) <= GRAD_TOL:
-        raise AssertionError(f"card and CPU losses disagree: {losses}")
-    for name, n in train_launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched on the train path")
+    emit({"phase": "grad_check"} | grad_check(torch, ASSET, build_model,
+                                              batch))
+
+    # 7. the transducer's decode: as main_path
+    s2tt(speech, lengths)
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    tout = s2tt(speech, lengths)
+    torch.cuda.synchronize()
+    twalls = [time.perf_counter() - t0]
+    tdecode_launches = dict(_cuda.LAUNCHES)
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        s2tt(speech, lengths)
+        torch.cuda.synchronize()
+        twalls.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        tmodel.encode(speech, lengths)
+    torch.cuda.synchronize()
+    tencode_s = time.perf_counter() - t0
+    thyps = [nbest[0][0] for nbest in tout]
+    twords = score_corpus(refs, thyps, "word")
+    emit({"phase": "transducer_decode", "n_utts": N_UTTS,
+          "beam": TRANSDUCER_BEAM, "batch_shape": list(speech.shape),
+          "wer": twords["err_rate"],
+          "cer": score_corpus(refs, thyps, "char")["err_rate"],
+          "ref_words": twords["ref_len"],
+          "word_errors": twords["sub"] + twords["del"] + twords["ins"],
+          "wer_limit": MAX_TRANSDUCER_WER,
+          "wall_seconds": twalls, "encode_seconds": tencode_s,
+          "audio_s_per_s_median": audio_s / statistics.median(twalls),
+          "launches": tdecode_launches,
+          "examples": [[r, h] for r, h in zip(refs[:3], thyps[:3])]})
+    if len(tout) != N_UTTS or not all(nbest and nbest[0][2]
+                                      for nbest in tout):
+        raise AssertionError("an utterance decoded to nothing")
+    want_decode = {"flash_attn_fwd": 0, "flash_attn_bwd": 0, "logmel_fwd": 1,
+                   "rnnt_alpha": 0, "rnnt_beta": 0}
+    if tdecode_launches != want_decode:
+        raise AssertionError(f"transducer decode launches {tdecode_launches}"
+                             f", not {want_decode}")
+    if not twords["err_rate"] <= MAX_TRANSDUCER_WER:
+        raise AssertionError(f"transducer WER {twords['err_rate']} above "
+                             f"{MAX_TRANSDUCER_WER}")
+
+    # 8. the transducer's training: as train_path
+    tbefore = evaluate(tmodel, tvalid_if, "cuda")
+    ttrainer, tper_step, ttrain_launches, ttrain_wall, tpeak = train_run(
+        torch, _cuda, asr_transducer_train.main, tcfg_path, TransducerModel)
+    tsteps = ttrainer.step_stats
+    tafter = ttrainer.reporter.stats[1]["valid"]
+    flat, _, tmeta = load_checkpoint(Path(tcfg["output_dir"])
+                                     / "checkpoint")
+    fresh = convert.load_flax_params(asr_transducer.build_model(tcfg),
+                                     flat).to("cuda")
+    treloaded = evaluate(fresh, tvalid_if, "cuda")
+    tstep_ms = [1e3 * s["train_time"] for s in tsteps]
+    emit({"phase": "transducer_train", "batch_size": TRAIN_BATCH,
+          "batch_shape": list(ttrain_batch["speech"].shape),
+          "steps": [{k: s[k] for k in ("loss", "loss_rnnt", "loss_aux_ctc",
+                                       "grad_norm", "skipped")}
+                    | {"ms": ms, "launches": n}
+                    for s, ms, n in zip(tsteps, tstep_ms, tper_step)],
+          "step_ms_median_3_10": statistics.median(tstep_ms[2:]),
+          "peak_memory_bytes": tpeak, "wall_seconds": ttrain_wall,
+          "launches": ttrain_launches,
+          "valid_before": tbefore, "valid_after": tafter,
+          "valid_reloaded": treloaded, "checkpoint_epoch": tmeta["epoch"]})
+    twant = {"flash_attn_fwd": 0, "flash_attn_bwd": 0, "logmel_fwd": 1,
+             "rnnt_alpha": 1, "rnnt_beta": 1}
+    check_steps(tsteps, tper_step, twant,
+                ("loss", "loss_rnnt", "loss_aux_ctc"))
+    if not abs(treloaded["loss"] / tafter["loss"] - 1) <= RELOAD_TOL:
+        raise AssertionError(f"the reloaded transducer checkpoint's "
+                             f"validation loss {treloaded['loss']} != "
+                             f"{tafter['loss']}")
+
+    # 9. the transducer's gradients, card against CPU
+    _, batch = tvalid_if.collate_fn(
+        [tvalid_if.dataset[k]
+         for k in tvalid_if.epoch_batches(0)[0][:GRAD_BATCH]])
+    emit({"phase": "transducer_grad_check"}
+         | grad_check(torch, TRANSDUCER, asr_transducer.build_model, batch))
+
+    # 10. determinism: runs of each entry point from one seed repeat
+    # themselves bit for bit, resumed or not; and the CTC gradient is the
+    # port's own closed form, not torch's CTC loss
+    ctc_nodes = {}
+    for name, m, b in (("flagship", model, train_batch),
+                       ("transducer", tmodel, ttrain_batch)):
+        m.train()
+        loss, _, _ = m(**b)
+        ctc_nodes[name] = ctc_backward_nodes(loss)
+        m.eval()
+        del loss
+    emit({"phase": "determinism", "ctc_loss_nodes": ctc_nodes,
+          "flagship": determinism(torch, ASRTask, ASSET, workdir,
+                                  "flagship"),
+          "transducer": determinism(torch, ASRTransducerTask, TRANSDUCER,
+                                    workdir, "transducer")})
+    if any(ctc_nodes.values()):
+        raise AssertionError(f"a CTC gradient from torch's CTC loss: "
+                             f"{ctc_nodes}")
 
     print(smi, flush=True)
-    per_decode = {n: decode_launches[n] for n in decode_launches}
+    # launches of each kernel per decode and per train step on the paths
+    # that run it; "launches" is the count on its main path's run: the
+    # flagship's decode (K1, K2), the flagship's train path (K1b) and the
+    # transducer's train path (K3)
+    paths = {"decode": {"flagship": decode_launches,
+                        "transducer": tdecode_launches},
+             "train_step": {"flagship": want, "transducer": twant}}
+    main_runs = {"flash_attn_fwd": decode_launches,
+                 "flash_attn_bwd": train_launches,
+                 "logmel_fwd": decode_launches,
+                 "rnnt_alpha": ttrain_launches, "rnnt_beta": ttrain_launches}
+    for name, n in main_runs.items():
+        if n[name] <= 0:
+            raise AssertionError(f"{name} was not launched on its path")
     emit({"kernels": [
         {key: kern[key] for key in (
             "name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")}
-        | {"launches": (train_launches[kern["name"]]
-                        if kern["name"] == "flash_attn_bwd"
-                        else per_decode[kern["name"]]),
-           "launches_per_decode": per_decode[kern["name"]],
-           "launches_per_train_step": want[kern["name"]],
-           "launches_train_path": train_launches[kern["name"]]}
+        | {"launches": main_runs[kern["name"]][kern["name"]]}
+        | {f"launches_per_{kind_}": {
+            model_: counts[kern["name"]]
+            for model_, counts in per_model.items() if counts[kern["name"]]}
+           for kind_, per_model in paths.items()}
         | ({"library_note": kern["library_note"]}
            if "library_note" in kern else {})
         for kern in kernels],

@@ -19,9 +19,17 @@ from torch import nn
 from espnet_tpu_torch.frontends.default import DefaultFrontend, GlobalMVN
 from espnet_tpu_torch.nn.conformer import ConformerEncoder
 from espnet_tpu_torch.nn.decoder import TransformerDecoder
+from espnet_tpu_torch.nn.streaming_encoder import StreamingConformerEncoder
 from espnet_tpu_torch.ops.losses import (accuracy, add_sos_eos, ctc_loss,
                                          label_smoothing_loss)
 from espnet_tpu_torch.ops.specaug import specaug
+
+# the encoders the port has, by their config names (the JAX package's
+# ENCODER_CLASSES has more)
+ENCODER_CLASSES = {
+    "conformer": ConformerEncoder,
+    "streaming_conformer": StreamingConformerEncoder,
+}
 
 
 class CTCHead(nn.Module):
@@ -42,7 +50,8 @@ class ASRModel(nn.Module):
                  decoder_conf: Optional[dict], ctc_weight: float = 0.5,
                  blank_id: int = 0, specaug_conf: Optional[dict] = None,
                  lsm_weight: float = 0.0,
-                 length_normalized_loss: bool = False, ignore_id: int = -1):
+                 length_normalized_loss: bool = False, ignore_id: int = -1,
+                 encoder: str = "conformer"):
         super().__init__()
         self.vocab_size = vocab_size
         self.token_list = tuple(token_list)
@@ -55,8 +64,8 @@ class ASRModel(nn.Module):
         self.frontend = frontend
         self.normalize = normalize
         d = encoder_conf.get("output_size", 256)
-        self.encoder_mod = ConformerEncoder(frontend.output_size,
-                                            **encoder_conf)
+        self.encoder_mod = ENCODER_CLASSES[encoder](frontend.output_size,
+                                                    **encoder_conf)
         self.ctc = CTCHead(d, vocab_size) if ctc_weight > 0.0 else None
         self.decoder_mod = None
         if decoder_conf is not None and ctc_weight < 1.0:

@@ -1,11 +1,14 @@
-"""Relative-position multi-head attention (counterpart of
-espnet_tpu/nn/attention.py:RelPositionMultiHeadedAttention).
+"""Multi-head attention (counterpart of espnet_tpu/nn/attention.py).
 
-Position scores (Transformer-XL terms b + d) become an additive bias of
-the fused attention; content scores (a + c) are its q k^T. With attention
-dropout in training the softmax is written out, so that dropout can act
-on the probabilities (the JAX package's dispatch); otherwise the fused
-kernel runs.
+``MultiHeadedAttention`` is the JAX package's plain einsum path, with no
+KV cache and no band window: it reaches no Pallas kernel there, and here
+it stays torch matmuls.
+
+In ``RelPositionMultiHeadedAttention`` position scores (Transformer-XL
+terms b + d) become an additive bias of the fused attention; content
+scores (a + c) are its q k^T. With attention dropout in training the
+softmax is written out, so that dropout can act on the probabilities
+(the JAX package's dispatch); otherwise the fused kernel runs.
 """
 
 from __future__ import annotations
@@ -25,6 +28,36 @@ def rel_shift(x: torch.Tensor) -> torch.Tensor:
     B, H, T, P = x.shape
     x = F.pad(x, (1, 0)).reshape(B, H, P + 1, T)
     return x[:, :, 1:].reshape(B, H, T, P)[:, :, :, :T]
+
+
+class MultiHeadedAttention(nn.Module):
+    """Scaled dot-product attention over (B, T, D), heads split from D.
+    Without attention dropout: no caller of the port sets it."""
+
+    def __init__(self, n_head: int, n_feat: int):
+        super().__init__()
+        self.h, self.dk = n_head, n_feat // n_head
+        self.linear_q = nn.Linear(n_feat, n_feat)
+        self.linear_k = nn.Linear(n_feat, n_feat)
+        self.linear_v = nn.Linear(n_feat, n_feat)
+        self.linear_out = nn.Linear(n_feat, n_feat)
+
+    def _split(self, x):
+        B, T = x.shape[:2]
+        return x.reshape(B, T, self.h, self.dk).transpose(1, 2)
+
+    def forward(self, query, key, value, mask=None):
+        """mask: bool (B, Tq, Tk) or (B, 1, Tk), True = attend. A masked
+        score is -1e9, so a row with no key softmaxes to uniform."""
+        q = self._split(self.linear_q(query))
+        k = self._split(self.linear_k(key))
+        v = self._split(self.linear_v(value))
+        scores = (q @ k.transpose(-1, -2)) / math.sqrt(self.dk)
+        if mask is not None:
+            scores = scores + attention_bias(mask[:, None])
+        out = torch.softmax(scores, dim=-1) @ v
+        B, _, Tq, _ = out.shape
+        return self.linear_out(out.transpose(1, 2).reshape(B, Tq, -1))
 
 
 class RelPositionMultiHeadedAttention(nn.Module):

@@ -1,5 +1,6 @@
 """Depthwise 1-D convolution (counterpart of
-espnet_tpu/nn/convolution.py:DepthwiseConv1d, stride 1, SAME padding)."""
+espnet_tpu/nn/convolution.py:DepthwiseConv1d, stride 1, SAME or VALID
+padding)."""
 
 from __future__ import annotations
 
@@ -9,15 +10,21 @@ from torch import nn
 
 
 class DepthwiseConv1d(nn.Module):
-    """(B, T, C) -> (B, T, C): a grouped Conv1d with weight (C, 1, K),
-    padded (K-1)//2 on the left and the rest on the right."""
+    """(B, T, C) -> (B, T', C): a grouped Conv1d with weight (C, 1, K).
+    "SAME" pads (K-1)//2 on the left and the rest on the right (T' = T);
+    "VALID" pads nothing (T' = T - K + 1)."""
 
-    def __init__(self, channels: int, kernel_size: int):
+    def __init__(self, channels: int, kernel_size: int,
+                 padding: str = "SAME"):
         super().__init__()
+        if padding not in ("SAME", "VALID"):
+            raise NotImplementedError(f"padding {padding!r}: the port has "
+                                      f"SAME and VALID")
         self.weight = nn.Parameter(torch.zeros(channels, 1, kernel_size))
         self.bias = nn.Parameter(torch.zeros(channels))
         span = kernel_size - 1
-        self.pad = (span // 2, span - span // 2)
+        self.pad = ((span // 2, span - span // 2) if padding == "SAME"
+                    else (0, 0))
 
     def forward(self, x):
         h = F.pad(x.transpose(1, 2), self.pad)

@@ -6,6 +6,8 @@ defaults (the JAX package's ``model.init``) rather than torch's:
   1 / fan_in; zero biases;
 - Embed: flax's default, a normal of variance 1 / features;
 - ``pos_bias_u`` and ``pos_bias_v``: xavier_uniform;
+- the hidden kernels of an LSTM cell (hi, hf, hg, ho): orthogonal, as
+  flax's ``OptimizedLSTMCell`` has them; its input kernels lecun_normal;
 - LayerNorm: ones and zeros.
 
 The draws come from a seeded ``torch.Generator`` and are not flax's bits:
@@ -19,6 +21,7 @@ import math
 import torch
 from torch import nn
 
+from espnet_tpu_torch.models.transducer import LSTMCell
 from espnet_tpu_torch.nn.attention import RelPositionMultiHeadedAttention
 from espnet_tpu_torch.nn.convolution import DepthwiseConv1d
 
@@ -62,4 +65,9 @@ def init_like_flax(model: nn.Module, generator: torch.Generator) -> nn.Module:
             elif isinstance(module, RelPositionMultiHeadedAttention):
                 xavier_uniform_(module.pos_bias_u, generator)
                 xavier_uniform_(module.pos_bias_v, generator)
+    for module in model.modules():   # after the Linears inside the cells
+        if isinstance(module, LSTMCell):
+            for gate in module.GATES:
+                nn.init.orthogonal_(getattr(module, f"h{gate}").weight,
+                                    generator=generator)
     return model

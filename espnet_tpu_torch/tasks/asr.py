@@ -2,24 +2,25 @@
 espnet_tpu/tasks/asr.py:ASRTask and tasks/abs_task.py:build_model_from_file).
 
 Only what the flagship config names is built: the default frontend,
-SpecAug, GlobalMVN, a conformer encoder and a transformer decoder. Any
-other choice raises NotImplementedError. The model comes out in training
-mode (dropout and SpecAug on); ``build_model_from_file`` puts it in eval
-mode for decoding. ``ASRTask`` adds the task's defaults and its
-preprocessor to the training spine of ``tasks/abs_task.py``.
+SpecAug, GlobalMVN, a conformer (or streaming conformer) encoder and a
+transformer decoder. Any other choice raises NotImplementedError. The
+model comes out in training mode (dropout and SpecAug on);
+``build_model_from_file`` puts it in eval mode for decoding. ``ASRTask``
+adds the task's defaults and its preprocessor to the training spine of
+``tasks/abs_task.py``.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import torch
 
 from espnet_tpu_torch import convert
 from espnet_tpu_torch.data.preprocessor import CommonPreprocessor
 from espnet_tpu_torch.frontends.default import DefaultFrontend, GlobalMVN
-from espnet_tpu_torch.models.asr import ASRModel
+from espnet_tpu_torch.models.asr import ENCODER_CLASSES, ASRModel
 from espnet_tpu_torch.tasks.abs_task import AbsTask
 from espnet_tpu_torch.utils.config import load_yaml
 
@@ -39,19 +40,22 @@ def _require(cfg, key, supported, default):
     return value
 
 
-def build_model(cfg: Dict[str, Any]) -> ASRModel:
-    # fp32 means fp32: TF32 in matmuls or cuDNN convolutions would keep
-    # only ~3 decimal digits and break parity with the reference
+def fp32_and_deterministic():
+    """fp32 means fp32: TF32 in matmuls or cuDNN convolutions would keep
+    only ~3 decimal digits and break parity with the reference. And cuDNN
+    takes only deterministic algorithms: the backward of the subsampling
+    and depthwise convolutions may otherwise add in an order that changes
+    between runs, and training on the card would not repeat itself."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+
+
+def build_frontend(cfg: Dict[str, Any]):
+    """-> (DefaultFrontend, GlobalMVN or None, SpecAug conf or None): the
+    feature path both ASR models share."""
     _require(cfg, "frontend", {"default"}, "default")
     normalize = _require(cfg, "normalize", {"global_mvn", None}, None)
-    _require(cfg, "encoder", {"conformer"}, "transformer")
-    _require(cfg, "decoder", {"transformer", None}, "transformer")
-    _require(cfg, "model", {None}, None)
-    for key in ("preencoder", "postencoder"):
-        _require(cfg, key, {None}, None)
-    token_list = read_token_list(cfg["token_list"])
     stats = None
     if normalize == "global_mvn":
         stats_file = cfg.get("stats_file") or (
@@ -59,27 +63,42 @@ def build_model(cfg: Dict[str, Any]) -> ASRModel:
         if not stats_file:
             raise NotImplementedError("global_mvn without a stats_file")
         stats = GlobalMVN.from_file(stats_file)
+    specaug = _require(cfg, "specaug", {"specaug", None}, None)
+    return (DefaultFrontend(**dict(cfg.get("frontend_conf") or {})), stats,
+            dict(cfg.get("specaug_conf") or {}) if specaug == "specaug"
+            else None)
+
+
+def build_model(cfg: Dict[str, Any]) -> ASRModel:
+    fp32_and_deterministic()
+    frontend, normalize, specaug_conf = build_frontend(cfg)
+    encoder = _require(cfg, "encoder", set(ENCODER_CLASSES), "transformer")
+    _require(cfg, "decoder", {"transformer", None}, "transformer")
+    _require(cfg, "model", {None}, None)
+    for key in ("preencoder", "postencoder"):
+        _require(cfg, key, {None}, None)
+    token_list = read_token_list(cfg["token_list"])
     mc = dict(cfg.get("model_conf") or {})
     if mc.get("interctc_weight", 0.0) or (cfg.get("ctc_conf") or {}):
         raise NotImplementedError("interCTC and ctc_conf are not ported")
     decoder_conf = (dict(cfg.get("decoder_conf") or {})
                     if cfg.get("decoder", "transformer") else None)
-    specaug = _require(cfg, "specaug", {"specaug", None}, None)
     return ASRModel(
         vocab_size=len(token_list), token_list=token_list,
-        frontend=DefaultFrontend(**dict(cfg.get("frontend_conf") or {})),
-        normalize=stats,
+        frontend=frontend, normalize=normalize,
         encoder_conf=dict(cfg.get("encoder_conf") or {}),
         decoder_conf=decoder_conf,
         ctc_weight=mc.get("ctc_weight", 0.5),
-        specaug_conf=(dict(cfg.get("specaug_conf") or {})
-                      if specaug == "specaug" else None),
+        specaug_conf=specaug_conf,
         lsm_weight=mc.get("lsm_weight", 0.0),
-        length_normalized_loss=mc.get("length_normalized_loss", False))
+        length_normalized_loss=mc.get("length_normalized_loss", False),
+        encoder=encoder)
 
 
-def build_model_from_file(config_file, model_file, device):
-    """-> (model on ``device`` in eval mode, cfg).
+def build_model_from_file(config_file, model_file, device,
+                          build: Callable = build_model):
+    """-> (``build(cfg)`` with the weights of ``model_file``, on ``device``
+    in eval mode, and cfg).
 
     ``tokens.txt`` and ``feats_stats.npz`` next to the config (the layout
     of the committed assets) replace the config's token_list and
@@ -94,7 +113,7 @@ def build_model_from_file(config_file, model_file, device):
                        ("stats_file", "feats_stats.npz")):
         if (here / fname).exists():
             cfg[key] = str(here / fname)
-    model = build_model(cfg)
+    model = build(cfg)
     path = Path(model_file)
     if path.is_dir():
         path = path / "params_f16.npz"

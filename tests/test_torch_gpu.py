@@ -10,7 +10,9 @@ The kernels are held against their plain PyTorch versions on the same
 inputs (fp32 sums in another order: 1e-4 for attention outputs of O(1),
 1e-3 in the log domain for log-mel energies, and 2e-5 of each
 gradient's own scale for the attention backward, whose sums run over at
-most Tq or Tk terms).
+most Tq or Tk terms). The RNN-T sweeps take the same fp32 steps as
+their plain versions: nll, alpha, beta and the closed-form gradient
+within 1e-5 of their largest entry.
 """
 
 from pathlib import Path
@@ -26,6 +28,8 @@ from espnet_tpu_torch.ops.attention import (fused_attention,
 from espnet_tpu_torch.ops.logmel import fused_logmel, fused_logmel_plain
 
 ASSET = Path(__file__).resolve().parents[1] / "assets" / "synth_asr_flagship"
+TRANSDUCER = (Path(__file__).resolve().parents[1] / "assets"
+              / "synth_asr_transducer")
 
 
 def _cuda_or_skip():
@@ -93,7 +97,8 @@ def test_speech2text_on_the_card_goes_through_both_kernels():
     _cuda.reset_launch_counts()
     out = Speech2Text(**kw)(speech, lengths)
     assert _cuda.LAUNCHES == {"flash_attn_fwd": 6, "flash_attn_bwd": 0,
-                              "logmel_fwd": 1}
+                              "logmel_fwd": 1, "rnnt_alpha": 0,
+                              "rnnt_beta": 0}
     ref = Speech2Text(device="cpu", **kw)(speech, lengths)
     assert [n[0][2] for n in out] == [n[0][2] for n in ref]
 
@@ -215,7 +220,176 @@ def test_two_train_steps_of_the_entry_point_on_the_card(tmp_path):
         assert np.isfinite(stats["loss"]) and stats["skipped"] == 0.0
     # 2 steps x 2 blocks forward + 1 validation batch x 2 blocks
     assert _cuda.LAUNCHES == {"flash_attn_fwd": 6, "flash_attn_bwd": 8,
-                              "logmel_fwd": 3}
+                              "logmel_fwd": 3, "rnnt_alpha": 0,
+                              "rnnt_beta": 0}
     flat = convert.state_dict_to_flax(trainer.model)
     assert all(np.isfinite(v).all() for v in flat.values())
     assert (tmp_path / "exp" / "checkpoint" / "params.pkl").exists()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,U1,V,tl,ul", [
+    (25, 145, 65, 25, None, None),
+    (3, 7, 5, 6, [7, 1, 4], [0, 4, 2]),
+    (2, 40, 1100, 5, [40, 33], [1099, 700]),
+])
+def test_rnnt_sweeps_match_plain(B, T, U1, V, tl, ul):
+    _cuda_or_skip()
+    from espnet_tpu_torch.ops import rnnt
+    g = torch.Generator(device="cuda").manual_seed(3)
+    logits = torch.randn(B, T, U1, V, generator=g, device="cuda")
+    labels = torch.randint(1, V, (B, U1 - 1), generator=g, device="cuda")
+    tl = (torch.randint(1, T + 1, (B,), generator=g, device="cuda")
+          if tl is None else torch.tensor(tl, device="cuda"))
+    ul = (torch.randint(0, U1, (B,), generator=g, device="cuda")
+          if ul is None else torch.tensor(ul, device="cuda"))
+    lat = rnnt.lattices(logits, labels, tl, ul)
+    n0 = dict(_cuda.LAUNCHES)
+    alpha, nll = rnnt.rnnt_alpha(*lat, tl, ul)
+    beta = rnnt.rnnt_beta(*lat, tl, ul)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["rnnt_alpha"] == n0["rnnt_alpha"] + 1
+    assert _cuda.LAUNCHES["rnnt_beta"] == n0["rnnt_beta"] + 1
+    alpha0, nll0 = rnnt.rnnt_alpha_plain(*lat, tl, ul)
+    beta0 = rnnt.rnnt_beta_plain(*lat, tl, ul)
+    inside = alpha0 > rnnt.NEG_INF / 2
+    assert torch.equal(alpha > rnnt.NEG_INF / 2, inside)
+    assert torch.equal(beta > rnnt.NEG_INF / 2, inside)
+    for a, b in ((nll, nll0), (alpha[inside], alpha0[inside]),
+                 (beta[inside], beta0[inside])):
+        assert _relative_err(a, b) < 1e-5
+    # the loss's gradient: the kernels' sweeps through the closed form,
+    # against the plain sweeps through the same closed form
+    x = logits.clone().requires_grad_()
+    (grad,) = torch.autograd.grad(
+        rnnt.rnnt_loss(x, labels, tl, ul, reduction="sum"), (x,))
+    ref = rnnt.rnnt_grad(logits, labels, *lat, alpha0, beta0, nll0, tl, ul)
+    assert _relative_err(grad, ref) < 1e-5
+
+
+def _held_out(n):
+    from espnet_tpu_torch.data.synth_speech import SynthSpeechCorpus
+    utts = [SynthSpeechCorpus().utterance("test", i) for i in range(n)]
+    speech = np.zeros((n, 74656), np.float32)
+    for i, (w, _, _) in enumerate(utts):
+        speech[i, :len(w)] = w
+    return speech, [len(w) for w, _, _ in utts], [t for _, t, _ in utts]
+
+
+@pytest.mark.gpu
+def test_transducer_decode_on_the_card_goes_through_the_logmel_kernel():
+    _cuda_or_skip()
+    from espnet_tpu_torch.bin.asr_transducer_inference import \
+        Speech2TextTransducer
+    speech, lengths, refs = _held_out(3)
+    kw = dict(train_config=TRANSDUCER / "config.yaml",
+              model_file=TRANSDUCER, beam_size=5)
+    _cuda.reset_launch_counts()
+    out = Speech2TextTransducer(**kw)(speech, lengths)
+    assert _cuda.LAUNCHES == {"flash_attn_fwd": 0, "flash_attn_bwd": 0,
+                              "logmel_fwd": 1, "rnnt_alpha": 0,
+                              "rnnt_beta": 0}
+    ref = Speech2TextTransducer(device="cpu", **kw)(speech, lengths)
+    assert [n[0][2] for n in out] == [n[0][2] for n in ref]
+    assert [n[0][0] for n in out] == refs
+
+
+@pytest.mark.gpu
+def test_transducer_train_step_launches_each_sweep_once():
+    _cuda_or_skip()
+    from espnet_tpu_torch.data.preprocessor import CommonPreprocessor
+    from espnet_tpu_torch.tasks.asr import build_model_from_file
+    from espnet_tpu_torch.tasks.asr_transducer import build_model
+    model, _ = build_model_from_file(TRANSDUCER / "config.yaml", TRANSDUCER,
+                                     "cuda", build=build_model)
+    speech, lengths, refs = _held_out(4)
+    pre = CommonPreprocessor("char", list(model.token_list))
+    ids = [pre("u", {"text": t})["text"] for t in refs]
+    text = np.zeros((4, 64), np.int64)
+    for i, x in enumerate(ids):
+        text[i, :len(x)] = x
+    batch = {"speech": torch.from_numpy(speech).cuda(),
+             "speech_lengths": torch.tensor(lengths).cuda(),
+             "text": torch.from_numpy(text).cuda(),
+             "text_lengths": torch.tensor([len(x) for x in ids]).cuda()}
+    model.train()
+    _cuda.reset_launch_counts()
+    loss, stats, _ = model(**batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES == {"flash_attn_fwd": 0, "flash_attn_bwd": 0,
+                              "logmel_fwd": 1, "rnnt_alpha": 1,
+                              "rnnt_beta": 1}
+    assert all(torch.isfinite(v) for v in stats.values())
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in model.parameters())
+    with torch.no_grad():   # validation: the forward sweep alone
+        model.eval()(**batch)
+    assert _cuda.LAUNCHES["rnnt_alpha"] == 2
+    assert _cuda.LAUNCHES["rnnt_beta"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("task_name", ["asr", "asr_transducer"])
+def test_training_on_the_card_repeats_itself_bit_for_bit(tmp_path,
+                                                         task_name):
+    # two runs from one seed, and one stopped after its first epoch and
+    # resumed, end with the same parameters: dropout, SpecAug, the CTC
+    # gradient and the cuDNN convolutions' backward all repeat
+    _cuda_or_skip()
+    from espnet_tpu_torch.data.synth_speech import SynthSpeechCorpus
+    from espnet_tpu_torch.tasks.asr import ASRTask
+    from espnet_tpu_torch.tasks.asr_transducer import ASRTransducerTask
+    from espnet_tpu_torch.train.checkpoint import load_checkpoint
+    SynthSpeechCorpus().materialize(tmp_path / "data", n_train=6, n_valid=0,
+                                    n_test=0)
+    if task_name == "asr":
+        task, model_cfg = ASRTask, {
+            "encoder": "conformer",
+            "encoder_conf": {"output_size": 64, "attention_heads": 4,
+                             "linear_units": 128, "num_blocks": 2,
+                             "cnn_module_kernel": 7},
+            "decoder": "transformer",
+            "decoder_conf": {"attention_heads": 4, "linear_units": 128,
+                             "num_blocks": 1},
+            "model_conf": {"ctc_weight": 0.3, "lsm_weight": 0.1}}
+    else:
+        task, model_cfg = ASRTransducerTask, {
+            "encoder": "streaming_conformer",
+            "encoder_conf": {"output_size": 64, "attention_heads": 4,
+                             "linear_units": 128, "num_blocks": 2,
+                             "chunk_size": 4, "left_chunks": 2,
+                             "cnn_kernel": 5},
+            "decoder": "rnn", "decoder_conf": {"hidden_size": 64},
+            "joint_conf": {"joint_space_size": 64},
+            "model_conf": {"aux_ctc_weight": 0.3}}
+
+    def train(name, max_epoch, resume=False):
+        cfg = {
+            "output_dir": str(tmp_path / name), "seed": 3,
+            "max_epoch": max_epoch, "num_iters_per_epoch": 1,
+            "batch_type": "sorted", "batch_size": 3, "resume": resume,
+            "optim": "adam", "optim_conf": {"lr": 0.002},
+            "scheduler": "warmuplr", "scheduler_conf": {"warmup_steps": 10},
+            "train_data_path_and_name_and_type": [
+                f"{tmp_path}/data/train/wav.scp,speech,sound",
+                f"{tmp_path}/data/train/text,text,text"],
+            "token_list": str(ASSET / "tokens.txt"),
+            "normalize": "global_mvn",
+            "stats_file": str(ASSET / "feats_stats.npz"),
+            "specaug": "specaug",
+            "specaug_conf": {"num_freq_mask": 2,
+                             "freq_mask_width_range": [0, 10],
+                             "num_time_mask": 2,
+                             "time_mask_width_range": [0, 20]},
+            **model_cfg}
+        task.main(cfg)
+        return load_checkpoint(tmp_path / name / "checkpoint")[0]
+
+    ref = train("a", 3)
+    train("resumed", 2)
+    for other in (train("b", 3), train("resumed", 3, resume=True)):
+        assert sorted(other) == sorted(ref)
+        for name in ref:
+            np.testing.assert_array_equal(other[name], ref[name],
+                                          err_msg=name)
