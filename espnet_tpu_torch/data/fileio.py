@@ -1,6 +1,7 @@
 """Kaldi-style file IO (counterpart of espnet_tpu/data/fileio.py): text
-maps, number sequences, and WAV read/write with the standard library and
-numpy (PCM 8/16/32-bit and IEEE float), without soundfile."""
+maps, number sequences, WAV read/write with the standard library and
+numpy (PCM 8/16/32-bit and IEEE float), without soundfile, and the
+nested text-map writer of the decode outputs."""
 
 from __future__ import annotations
 
@@ -103,3 +104,40 @@ class SoundScpReader:
 
     def __len__(self):
         return len(self.data)
+
+
+class DatadirWriter:
+    """Nested text-map writer: ``w["1best_recog"]["text"][key] = "hello"``
+    writes the line "key hello" to ``<dir>/1best_recog/text``."""
+
+    def __init__(self, p: Union[Path, str]):
+        self.path = Path(p)
+        self.children = {}
+        self.fd = None
+
+    def __getitem__(self, key) -> "DatadirWriter":
+        if self.fd is not None:
+            raise RuntimeError("already opened as a file")
+        if key not in self.children:
+            self.children[key] = DatadirWriter(self.path / key)
+        return self.children[key]
+
+    def __setitem__(self, key: str, value: str):
+        if self.children:
+            raise RuntimeError("already a directory")
+        if self.fd is None:
+            self.path.parent.mkdir(parents=True, exist_ok=True)
+            self.fd = open(self.path, "w", encoding="utf-8")
+        self.fd.write(f"{key} {value}\n")
+
+    def close(self):
+        if self.fd is not None:
+            self.fd.close()
+        for c in self.children.values():
+            c.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        self.close()

@@ -252,3 +252,34 @@ class SynthSpeechCorpus:
                     write_wav(d / "wav" / f"{uid}.wav", FS, wave)
                     fw.write(f"{uid} {d / 'wav' / f'{uid}.wav'}\n")
                     ft.write(f"{uid} {text}\n")
+
+
+def concat_data_dir(src, dst, min_samples: int) -> List[Tuple[str, int, str]]:
+    """Write a Kaldi-style data dir ``dst`` (wav.scp, text, 16-bit wavs)
+    of long recordings: each joins consecutive utterances of ``src`` (in
+    wav.scp order) until it holds at least ``min_samples`` samples, and
+    their transcripts with a space. Utterances left over at the end, too
+    few to make one more, are dropped. -> [(uid, samples, text)]."""
+    from pathlib import Path
+
+    from espnet_tpu_torch.data.fileio import (SoundScpReader,
+                                              read_2columns_text, write_wav)
+    src, dst = Path(src), Path(dst)
+    waves, texts = SoundScpReader(src / "wav.scp"), read_2columns_text(
+        src / "text")
+    (dst / "wav").mkdir(parents=True, exist_ok=True)
+    out, parts, words = [], [], []
+    for key in waves.keys():
+        rate, wave = waves[key]
+        parts.append(np.round(wave * 32768.0).astype(np.int16))
+        words.append(texts[key])
+        if sum(len(p) for p in parts) >= min_samples:
+            uid = f"{dst.name}_{len(out):05d}"
+            write_wav(dst / "wav" / f"{uid}.wav", rate, np.concatenate(parts))
+            out.append((uid, sum(len(p) for p in parts), " ".join(words)))
+            parts, words = [], []
+    with open(dst / "wav.scp", "w") as fw, open(dst / "text", "w") as ft:
+        for uid, _, text in out:
+            fw.write(f"{uid} {dst / 'wav' / f'{uid}.wav'}\n")
+            ft.write(f"{uid} {text}\n")
+    return out

@@ -1,9 +1,10 @@
 """Hybrid CTC/attention ASR model (counterpart of
 espnet_tpu/models/asr.py:ASRModel).
 
-encode = frontend -> SpecAug (training only) -> GlobalMVN -> conformer
-encoder; a CTC head; the transformer decoder, teacher-forced for the
-loss and one step at a time for beam search. The loss is
+encode = frontend -> SpecAug (training only) -> GlobalMVN -> encoder
+(conformer, streaming conformer, transformer or Longformer); a CTC head;
+the transformer decoder, teacher-forced for the loss and one step at a
+time for beam search. The loss is
 ctc_weight * CTC + (1 - ctc_weight) * label-smoothed attention loss.
 Attribute names follow the JAX parameter tree (encoder_mod, ctc,
 decoder_mod) so that ``convert.py`` maps one onto the other by path.
@@ -20,15 +21,26 @@ from espnet_tpu_torch.frontends.default import DefaultFrontend, GlobalMVN
 from espnet_tpu_torch.nn.conformer import ConformerEncoder
 from espnet_tpu_torch.nn.decoder import TransformerDecoder
 from espnet_tpu_torch.nn.streaming_encoder import StreamingConformerEncoder
+from espnet_tpu_torch.nn.transformer import TransformerEncoder
 from espnet_tpu_torch.ops.losses import (accuracy, add_sos_eos, ctc_loss,
                                          label_smoothing_loss)
 from espnet_tpu_torch.ops.specaug import specaug
+
+
+def _longformer(input_size: int, **kw):
+    """The transformer encoder with a +-64-frame attention band unless
+    the config names another (the JAX package's ``_longformer``)."""
+    kw.setdefault("attention_window", 64)
+    return TransformerEncoder(input_size, **kw)
+
 
 # the encoders the port has, by their config names (the JAX package's
 # ENCODER_CLASSES has more)
 ENCODER_CLASSES = {
     "conformer": ConformerEncoder,
     "streaming_conformer": StreamingConformerEncoder,
+    "transformer": TransformerEncoder,
+    "longformer": _longformer,
 }
 
 

@@ -19,6 +19,7 @@ from torch import nn
 
 from espnet_tpu_torch.frontends.default import DefaultFrontend, GlobalMVN
 from espnet_tpu_torch.models.asr import ENCODER_CLASSES, CTCHead
+from espnet_tpu_torch.nn.embedding import OneHotEmbedding
 from espnet_tpu_torch.ops.losses import ctc_loss
 from espnet_tpu_torch.ops.rnnt import rnnt_loss
 from espnet_tpu_torch.ops.specaug import specaug
@@ -66,7 +67,7 @@ class RNNDecoder(nn.Module):
         emb = embed_size or hidden_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
-        self.embed = nn.Embedding(vocab_size, emb)
+        self.embed = OneHotEmbedding(vocab_size, emb)
         for i in range(num_layers):
             self.add_module(f"rnn{i}", LSTMCell(emb if i == 0 else
                                                 hidden_size, hidden_size))
@@ -115,7 +116,7 @@ class StatelessDecoder(nn.Module):
                  dropout_rate: float = 0.0):
         super().__init__()
         self.embed_size = embed_size
-        self.embed = nn.Embedding(vocab_size, embed_size)
+        self.embed = OneHotEmbedding(vocab_size, embed_size)
         self.dropout = nn.Dropout(dropout_rate)
 
     @property

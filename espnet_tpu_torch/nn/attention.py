@@ -1,8 +1,12 @@
 """Multi-head attention (counterpart of espnet_tpu/nn/attention.py).
 
-``MultiHeadedAttention`` is the JAX package's plain einsum path, with no
-KV cache and no band window: it reaches no Pallas kernel there, and here
-it stays torch matmuls.
+``MultiHeadedAttention`` is the JAX package's module without its KV
+cache. Given a band ``window`` (the Longformer encoder), it runs the banded
+attention kernel (``ops/banded_attention.py``) unless attention dropout
+acts, in training with a rate above 0: then, as in the JAX package's
+dispatch, the softmax is written out under the caller's mask (which holds
+the band) so that dropout can act on the probabilities. Without a window
+it is plain torch matmuls, as the JAX package's einsum path.
 
 In ``RelPositionMultiHeadedAttention`` position scores (Transformer-XL
 terms b + d) become an additive bias of the fused attention; content
@@ -20,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from espnet_tpu_torch.ops.attention import fused_attention
+from espnet_tpu_torch.ops.banded_attention import banded_attention
 from espnet_tpu_torch.utils.masks import attention_bias
 
 
@@ -31,12 +36,12 @@ def rel_shift(x: torch.Tensor) -> torch.Tensor:
 
 
 class MultiHeadedAttention(nn.Module):
-    """Scaled dot-product attention over (B, T, D), heads split from D.
-    Without attention dropout: no caller of the port sets it."""
+    """Scaled dot-product attention over (B, T, D), heads split from D."""
 
-    def __init__(self, n_head: int, n_feat: int):
+    def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0):
         super().__init__()
         self.h, self.dk = n_head, n_feat // n_head
+        self.dropout_rate = dropout_rate
         self.linear_q = nn.Linear(n_feat, n_feat)
         self.linear_k = nn.Linear(n_feat, n_feat)
         self.linear_v = nn.Linear(n_feat, n_feat)
@@ -46,16 +51,33 @@ class MultiHeadedAttention(nn.Module):
         B, T = x.shape[:2]
         return x.reshape(B, T, self.h, self.dk).transpose(1, 2)
 
-    def forward(self, query, key, value, mask=None):
+    def qkv(self, query, key, value):
+        """The projections, split into heads: (B, H, T, dk) each."""
+        return (self._split(self.linear_q(query)),
+                self._split(self.linear_k(key)),
+                self._split(self.linear_v(value)))
+
+    def forward(self, query, key, value, mask=None, window=None,
+                valid=None):
         """mask: bool (B, Tq, Tk) or (B, 1, Tk), True = attend. A masked
-        score is -1e9, so a row with no key softmaxes to uniform."""
-        q = self._split(self.linear_q(query))
-        k = self._split(self.linear_k(key))
-        v = self._split(self.linear_v(value))
-        scores = (q @ k.transpose(-1, -2)) / math.sqrt(self.dk)
-        if mask is not None:
-            scores = scores + attention_bias(mask[:, None])
-        out = torch.softmax(scores, dim=-1) @ v
+        score is -1e9, so a row with no key softmaxes to uniform.
+
+        window/valid: self-attention over a +-window band of the (B, T)
+        valid keys, through the banded attention op; ``mask`` must then
+        hold the same band for the dropout route."""
+        q, k, v = self.qkv(query, key, value)
+        dropout = self.training and self.dropout_rate > 0.0
+        if window is not None and not dropout:
+            out = banded_attention(q, k, v, window, valid,
+                                   sm_scale=1.0 / math.sqrt(self.dk))
+        else:
+            scores = (q @ k.transpose(-1, -2)) / math.sqrt(self.dk)
+            if mask is not None:
+                scores = scores + attention_bias(mask[:, None])
+            attn = torch.softmax(scores, dim=-1)
+            if dropout:
+                attn = F.dropout(attn, self.dropout_rate)
+            out = attn @ v
         B, _, Tq, _ = out.shape
         return self.linear_out(out.transpose(1, 2).reshape(B, Tq, -1))
 

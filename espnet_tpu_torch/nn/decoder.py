@@ -19,7 +19,7 @@ import math
 import torch
 from torch import nn
 
-from espnet_tpu_torch.nn.embedding import PositionalEncoding
+from espnet_tpu_torch.nn.embedding import OneHotEmbedding, PositionalEncoding
 from espnet_tpu_torch.nn.transformer import PositionwiseFeedForward
 from espnet_tpu_torch.utils.masks import attention_bias, make_non_pad_mask
 
@@ -127,7 +127,7 @@ class TransformerDecoder(nn.Module):
         super().__init__()
         d = encoder_output_size
         self.d, self.h = d, attention_heads
-        self.embed = nn.Embedding(vocab_size, d)
+        self.embed = OneHotEmbedding(vocab_size, d)
         self.pos_enc = PositionalEncoding(
             d, dropout_rate=positional_dropout_rate)
         self.layers = nn.ModuleList(

@@ -6,6 +6,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -26,22 +27,33 @@ def sinusoidal_table(length: int, d_model: int, centered: bool = False
 
 
 class PositionalEncoding(nn.Module):
-    """x -> dropout(x * sqrt(d) + PE), with the table kept for ``max_len``
-    rows."""
+    """x -> dropout(x * sqrt(d) + PE) at any length: the table is kept on
+    x's device and rebuilt at least twice as long when a longer one is
+    asked for, so a decoder stepping one position at a time rebuilds it
+    a logarithmic number of times (a row depends on its position alone,
+    so a longer table's first rows are a shorter one's)."""
 
-    def __init__(self, d_model: int, max_len: int = 2048,
-                 dropout_rate: float = 0.1):
+    def __init__(self, d_model: int, dropout_rate: float = 0.1):
         super().__init__()
         self.d_model = d_model
-        self.register_buffer("pe", torch.from_numpy(
-            sinusoidal_table(max_len, d_model)), persistent=False)
         self.dropout = nn.Dropout(dropout_rate)
+        self._pe = None
+
+    def _table(self, length: int, device) -> torch.Tensor:
+        """The (length, d) table on ``device``."""
+        pe = self._pe
+        if pe is None or pe.shape[0] < length or pe.device != device:
+            pe = torch.from_numpy(sinusoidal_table(
+                max(length, 0 if pe is None else 2 * pe.shape[0]),
+                self.d_model)).to(device)
+            self._pe = pe
+        return pe[:length]
 
     def forward(self, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
         """x (B, T, d) holds positions offset .. offset+T-1."""
         T = x.shape[1]
-        return self.dropout(x * math.sqrt(self.d_model)
-                            + self.pe[offset:offset + T])
+        pe = self._table(offset + T, x.device)[offset:]
+        return self.dropout(x * math.sqrt(self.d_model) + pe)
 
 
 class RelPositionalEncoding(nn.Module):
@@ -59,3 +71,15 @@ class RelPositionalEncoding(nn.Module):
         pe = pe[None].to(x.device, x.dtype)
         return (self.dropout(x * math.sqrt(self.d_model)),
                 self.dropout(pe))
+
+
+class OneHotEmbedding(nn.Embedding):
+    """An embedding looked up as one-hot rows times the table: the same
+    numbers forward, and a gradient that is a matrix product, the same in
+    every run. The CUDA backward of a gathered lookup is not: on batches
+    of long transcripts (4 x ~930 tokens) two runs from one seed parted in
+    this table alone."""
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.one_hot(ids.long(), self.num_embeddings).to(
+            self.weight.dtype) @ self.weight

@@ -27,12 +27,14 @@ PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 LIB_NAME = "libespnet_tpu_torch_kernels.so"
-SOURCES = ("flash_attn.cu", "flash_attn_bwd.cu", "logmel.cu", "rnnt.cu")
+SOURCES = ("flash_attn.cu", "flash_attn_bwd.cu", "logmel.cu", "rnnt.cu",
+           "banded_attn.cu", "banded_attn_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"flash_attn_fwd": 0, "flash_attn_bwd": 0, "logmel_fwd": 0,
-            "rnnt_alpha": 0, "rnnt_beta": 0}
+            "rnnt_alpha": 0, "rnnt_beta": 0, "banded_attn_fwd": 0,
+            "banded_attn_bwd": 0}
 
 _lib = None
 BUILD_SECONDS = None  # wall time of the build this process ran, if any
@@ -123,6 +125,15 @@ def lib() -> ctypes.CDLL:
         L.rnnt_alpha.argtypes = [p, p, p, p, p, p, i, i, i, p]
         L.rnnt_beta.argtypes = [p, p, p, p, p, i, i, i, p]
         L.rnnt_alpha.restype = L.rnnt_beta.restype = i
+        L.banded_attn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f32,
+                                      p]
+        L.banded_attn_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i,
+                                          i, i, f32, p]
+        L.banded_attn_bwd_dq.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
+                                         i, f32, p]
+        for fn in (L.banded_attn_fwd, L.banded_attn_bwd_dkv,
+                   L.banded_attn_bwd_dq):
+            fn.restype = i
         _lib = L
     return _lib
 

@@ -103,6 +103,14 @@ def parse_triples(spec) -> List[Tuple[str, str, str]]:
     return out
 
 
+def shard_keys(keys, job_id: int, num_jobs: int) -> List[str]:
+    """Job ``job_id``'s contiguous share of ``keys`` out of ``num_jobs``,
+    the first ``len(keys) % num_jobs`` jobs taking one more."""
+    base, rem = divmod(len(keys), num_jobs)
+    start = job_id * base + min(job_id, rem)
+    return list(keys[start:start + base + (1 if job_id < rem else 0)])
+
+
 class AbsTask:
     name: str = "abs"
 

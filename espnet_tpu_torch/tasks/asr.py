@@ -22,6 +22,7 @@ from espnet_tpu_torch.data.preprocessor import CommonPreprocessor
 from espnet_tpu_torch.frontends.default import DefaultFrontend, GlobalMVN
 from espnet_tpu_torch.models.asr import ENCODER_CLASSES, ASRModel
 from espnet_tpu_torch.tasks.abs_task import AbsTask
+from espnet_tpu_torch.train.checkpoint import load_checkpoint
 from espnet_tpu_torch.utils.config import load_yaml
 
 
@@ -104,8 +105,9 @@ def build_model_from_file(config_file, model_file, device,
     of the committed assets) replace the config's token_list and
     stats_file, as the bench does: the configured paths name a training
     work directory that may belong to another checkout. Without a local
-    file the configured path stands. ``model_file`` is a
-    ``params_f16.npz`` file or the directory that holds it.
+    file the configured path stands. ``model_file`` is a checkpoint
+    directory of the trainer, a directory holding ``params_f16.npz``, or
+    an npz file.
     """
     cfg = load_yaml(config_file)
     here = Path(config_file).parent
@@ -114,10 +116,7 @@ def build_model_from_file(config_file, model_file, device,
         if (here / fname).exists():
             cfg[key] = str(here / fname)
     model = build(cfg)
-    path = Path(model_file)
-    if path.is_dir():
-        path = path / "params_f16.npz"
-    convert.load_flax_params(model, convert.read_npz(path))
+    convert.load_flax_params(model, load_checkpoint(model_file)[0])
     return model.to(device).eval(), cfg
 
 

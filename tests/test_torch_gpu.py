@@ -10,7 +10,8 @@ The kernels are held against their plain PyTorch versions on the same
 inputs (fp32 sums in another order: 1e-4 for attention outputs of O(1),
 1e-3 in the log domain for log-mel energies, and 2e-5 of each
 gradient's own scale for the attention backward, whose sums run over at
-most Tq or Tk terms). The RNN-T sweeps take the same fp32 steps as
+most Tq or Tk terms; the banded attention's the same, its sums running
+over at most 2W + 1 keys). The RNN-T sweeps take the same fp32 steps as
 their plain versions: nll, alpha, beta and the closed-form gradient
 within 1e-5 of their largest entry.
 """
@@ -98,7 +99,8 @@ def test_speech2text_on_the_card_goes_through_both_kernels():
     out = Speech2Text(**kw)(speech, lengths)
     assert _cuda.LAUNCHES == {"flash_attn_fwd": 6, "flash_attn_bwd": 0,
                               "logmel_fwd": 1, "rnnt_alpha": 0,
-                              "rnnt_beta": 0}
+                              "rnnt_beta": 0, "banded_attn_fwd": 0,
+                              "banded_attn_bwd": 0}
     ref = Speech2Text(device="cpu", **kw)(speech, lengths)
     assert [n[0][2] for n in out] == [n[0][2] for n in ref]
 
@@ -221,7 +223,8 @@ def test_two_train_steps_of_the_entry_point_on_the_card(tmp_path):
     # 2 steps x 2 blocks forward + 1 validation batch x 2 blocks
     assert _cuda.LAUNCHES == {"flash_attn_fwd": 6, "flash_attn_bwd": 8,
                               "logmel_fwd": 3, "rnnt_alpha": 0,
-                              "rnnt_beta": 0}
+                              "rnnt_beta": 0, "banded_attn_fwd": 0,
+                              "banded_attn_bwd": 0}
     flat = convert.state_dict_to_flax(trainer.model)
     assert all(np.isfinite(v).all() for v in flat.values())
     assert (tmp_path / "exp" / "checkpoint" / "params.pkl").exists()
@@ -288,7 +291,8 @@ def test_transducer_decode_on_the_card_goes_through_the_logmel_kernel():
     out = Speech2TextTransducer(**kw)(speech, lengths)
     assert _cuda.LAUNCHES == {"flash_attn_fwd": 0, "flash_attn_bwd": 0,
                               "logmel_fwd": 1, "rnnt_alpha": 0,
-                              "rnnt_beta": 0}
+                              "rnnt_beta": 0, "banded_attn_fwd": 0,
+                              "banded_attn_bwd": 0}
     ref = Speech2TextTransducer(device="cpu", **kw)(speech, lengths)
     assert [n[0][2] for n in out] == [n[0][2] for n in ref]
     assert [n[0][0] for n in out] == refs
@@ -319,7 +323,8 @@ def test_transducer_train_step_launches_each_sweep_once():
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES == {"flash_attn_fwd": 0, "flash_attn_bwd": 0,
                               "logmel_fwd": 1, "rnnt_alpha": 1,
-                              "rnnt_beta": 1}
+                              "rnnt_beta": 1, "banded_attn_fwd": 0,
+                              "banded_attn_bwd": 0}
     assert all(torch.isfinite(v) for v in stats.values())
     assert all(p.grad is not None and torch.isfinite(p.grad).all()
                for p in model.parameters())
@@ -393,3 +398,147 @@ def test_training_on_the_card_repeats_itself_bit_for_bit(tmp_path,
         for name in ref:
             np.testing.assert_array_equal(other[name], ref[name],
                                           err_msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,T,d,W,lens", [
+    (4, 4, 2200, 64, 64, (2200, 2131, 1900, 1500)),   # the long-form shape
+    (2, 3, 70, 40, 3, (70, 20)),     # T % 64 != 0, padded tail 50 > W
+    (2, 2, 50, 16, 100, (50, 7)),    # W >= T
+    (1, 2, 130, 128, 0, (100,)),     # W = 0
+])
+def test_banded_attn_kernels_match_plain(B, H, T, d, W, lens):
+    _cuda_or_skip()
+    from espnet_tpu_torch.ops.banded_attention import (
+        banded_attention, banded_attention_plain)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v, dout = (torch.randn(B, H, T, d, generator=g, device="cuda")
+                     for _ in range(4))
+    valid = (torch.arange(T, device="cuda")[None]
+             < torch.tensor(lens, device="cuda")[:, None])
+    kw = dict(sm_scale=d ** -0.5)
+    n0 = dict(_cuda.LAUNCHES)
+    with torch.no_grad():
+        out = banded_attention(q, k, v, W, valid, **kw)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["banded_attn_fwd"] == n0["banded_attn_fwd"] + 1
+    # every row, those with no allowed key (0 in both) too
+    torch.testing.assert_close(
+        out, banded_attention_plain(q, k, v, W, valid, **kw), atol=1e-4,
+        rtol=0)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    kern = torch.autograd.grad(banded_attention(*ins, W, valid, **kw), ins,
+                               dout)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["banded_attn_bwd"] == n0["banded_attn_bwd"] + 2
+    plain = torch.autograd.grad(banded_attention_plain(*ins, W, valid, **kw),
+                                ins, dout)
+    # each gradient against its own largest entry; at W = 0 dq and dk are
+    # zero in exact arithmetic (a row attends itself alone) and only
+    # rounding of do.v - D remains: against the largest gradient then
+    top = max(float(b.abs().max()) for b in plain)
+    for a, b in zip(kern, plain):
+        own = float(b.abs().max())
+        scale = own if own >= 1e-3 * top else top
+        assert float((a - b).abs().max()) <= 2e-5 * scale
+
+
+def _longform_cfg():
+    """The long-form slice's config (chip_smoke.py's longform_config
+    without data): the flagship's with the Longformer encoder."""
+    from espnet_tpu_torch.utils.config import load_yaml
+    cfg = load_yaml(ASSET / "config.yaml")
+    cfg.pop("collate_fixed_lengths")
+    cfg.update(token_list=str(ASSET / "tokens.txt"),
+               stats_file=str(ASSET / "feats_stats.npz"),
+               encoder="longformer",
+               encoder_conf={"output_size": 256, "attention_heads": 4,
+                             "linear_units": 1024, "num_blocks": 6,
+                             "attention_window": 64})
+    return cfg
+
+
+@pytest.mark.gpu
+def test_longform_speech2text_encodes_through_the_banded_kernel(tmp_path):
+    # a seed-initialised long-form model, saved as the trainer saves it,
+    # encodes two recordings of 1.1 M and 0.6 M samples joined from
+    # held-out utterances: 6 banded launches, the card's CTC
+    # log-probabilities within 1e-4 of the CPU's on valid frames
+    _cuda_or_skip()
+    from espnet_tpu_torch.bin.asr_inference import Speech2Text
+    from espnet_tpu_torch.data.synth_speech import SynthSpeechCorpus
+    from espnet_tpu_torch.nn.initialize import init_like_flax
+    from espnet_tpu_torch.tasks.asr import build_model
+    from espnet_tpu_torch.train.checkpoint import save_checkpoint
+    from espnet_tpu_torch.utils.config import dump_yaml
+    cfg = _longform_cfg()
+    save_checkpoint(tmp_path / "ckpt", init_like_flax(
+        build_model(cfg), torch.Generator().manual_seed(0)))
+    dump_yaml(cfg, tmp_path / "config.yaml")
+    waves, n = [], 0
+    while n < 1_100_000:
+        waves.append(SynthSpeechCorpus().utterance("test", len(waves))[0])
+        n += len(waves[-1])
+    speech = np.zeros((2, n), np.float32)
+    speech[0] = np.concatenate(waves)
+    speech[1, :600_000] = speech[0, :600_000]
+    lengths = [n, 600_000]
+    kw = dict(asr_train_config=tmp_path / "config.yaml",
+              asr_model_file=tmp_path / "ckpt", ctc_weight=1.0)
+    logprobs = {}
+    for device in ("cuda", "cpu"):
+        s2t = Speech2Text(device=device, **kw)
+        _cuda.reset_launch_counts()
+        with torch.no_grad():
+            enc, enc_lens = s2t.model.encode(
+                torch.from_numpy(speech).to(device),
+                torch.tensor(lengths, device=device))
+            logprobs[device] = torch.log_softmax(
+                s2t.model.ctc_logits(enc), dim=-1).cpu()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert enc.shape[1] >= 2048
+            assert _cuda.LAUNCHES == {"flash_attn_fwd": 0,
+                                      "flash_attn_bwd": 0, "logmel_fwd": 1,
+                                      "rnnt_alpha": 0, "rnnt_beta": 0,
+                                      "banded_attn_fwd": 6,
+                                      "banded_attn_bwd": 0}
+    frames = (torch.arange(logprobs["cpu"].shape[1])[None]
+              < enc_lens.cpu()[:, None])
+    assert float((logprobs["cuda"] - logprobs["cpu"]).abs()[frames].max()) \
+        <= 1e-4
+
+
+@pytest.mark.gpu
+def test_two_longform_train_steps_repeat_bit_for_bit(tmp_path):
+    # the long-form config over two recordings of >= 300 k samples: two
+    # runs of two steps from one seed (dropout and SpecAug on) end with
+    # the same parameters, through the banded kernels' backward
+    _cuda_or_skip()
+    from espnet_tpu_torch.data.synth_speech import (SynthSpeechCorpus,
+                                                    concat_data_dir)
+    from espnet_tpu_torch.tasks.asr import ASRTask
+    from espnet_tpu_torch.train.checkpoint import load_checkpoint
+    SynthSpeechCorpus().materialize(tmp_path / "data", n_train=24,
+                                    n_valid=0, n_test=0)
+    recs = concat_data_dir(tmp_path / "data" / "train",
+                           tmp_path / "data" / "long", 300_000)
+    assert len(recs) >= 2
+    finals = []
+    for run in ("a", "b"):
+        cfg = dict(_longform_cfg(), output_dir=str(tmp_path / run),
+                   max_epoch=2, num_iters_per_epoch=1, batch_size=2,
+                   batch_type="sorted", train_data_path_and_name_and_type=[
+                       f"{tmp_path}/data/long/wav.scp,speech,sound",
+                       f"{tmp_path}/data/long/text,text,text"],
+                   valid_data_path_and_name_and_type=[],
+                   train_shape_file=[], valid_shape_file=[])
+        _cuda.reset_launch_counts()
+        _, trainer = ASRTask.main(cfg)
+        assert [s["skipped"] for s in trainer.step_stats] == [0.0, 0.0]
+        assert _cuda.LAUNCHES["banded_attn_fwd"] == 12
+        assert _cuda.LAUNCHES["banded_attn_bwd"] == 24
+        finals.append(load_checkpoint(tmp_path / run / "checkpoint")[0])
+    for name in finals[0]:
+        np.testing.assert_array_equal(finals[1][name], finals[0][name],
+                                      err_msg=name)
