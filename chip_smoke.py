@@ -15,9 +15,12 @@ Phases, each printing one JSON line:
    train_long recordings): counts, samples, encoder frames, tokens;
 4. kernel_checks: each kernel against its plain PyTorch version at the
    shapes of its path, with the stated tolerance: the attention forward
-   at the decode shape, its backward at the train shape (with the real
+   at the decode shape (launched twice: the same bits, row statistics
+   too), its backward at the train shape (with the real
    rel-pos + padding bias of the first conformer block, which needs a
-   gradient) and on a small causal case with Tq != Tk, the log-mel, the
+   gradient) and on a small causal case with Tq != Tk, the log-mel on
+   the decode batch (launched twice: the same bits) and on the first
+   long-form train batch, the
    RNN-T lattice sweeps with their closed-form gradient on the
    transducer's real joint logits of its first train batch and on a small
    ragged case, and the banded attention forward and backward on the
@@ -25,7 +28,11 @@ Phases, each printing one JSON line:
    decode batch and of the first long-form train batch, and on small
    ragged cases (T not a multiple of 64, W >= T, W = 0, a padded tail
    longer than W); each kernel is timed beside the plain version and,
-   where one exists, one PyTorch library call (a yardstick only);
+   where one exists, one PyTorch library call (a yardstick only), the
+   attention forward also at the train shape and the log-mel also on
+   the long-form train batch, and torch.profiler names the device
+   kernels behind the attention forward, the log-mel and their library
+   calls at the decode shapes;
 5. main_path: the flagship hybrid CTC/attention Conformer
    (assets/synth_asr_flagship) built by Speech2Text on the card decodes the
    first 64 held-out SynthSpeechCorpus utterances in fp32 (beam 10, CTC
@@ -70,7 +77,11 @@ Phases, each printing one JSON line:
     come from torch's CTC loss.
 
 Then the nvidia-smi line, one {"kernels": [...]} line (errors, times and
-bounds of phase 4, launches from the paths that run each kernel) and last
+bounds of phase 4, launches from the paths that run each kernel; a bound
+is the larger of the bytes at 3.35 TB/s and the operations at 67 TFLOP/s,
+the fp32 rate of the CUDA cores, or for the attention kernels at 165
+TFLOP/s, the tensor cores' fp32-accurate 3xTF32 rate, with the bound at
+67 TFLOP/s beside it) and last
 {"ok": true, "device": {...}}. Without a card, or when any phase fails,
 it exits non-zero and prints no result.
 """
@@ -97,6 +108,9 @@ REPEATS = 2              # timed decodes after the counted one
 MAX_WER = 0.03          # the JAX package's fp32 decode of this subset: 2.39%
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
+# fp32-accurate products on the tensor cores: 3xTF32 forms each fp32
+# product from three TF32 products, at 495 TFLOP/s dense TF32
+FP32_TC_FLOPS = 495e12 / 3
 # fp32 with the sums taken in another order than the plain version: the
 # attention output is a convex mix of v (|v| ~ 1), so 1e-4 is ~100x the
 # expected rounding; the log-mel is compared in the log domain where the
@@ -195,12 +209,47 @@ def held_out_batch(corpus, n: int, min_len: int):
     return speech, lengths, [text for _, text, _ in utts]
 
 
-def bound(kern):
-    """The larger of bytes / HBM rate and operations / fp32 rate, in ms."""
+def bound(kern, tensor_cores: bool = False):
+    """The larger of bytes / HBM rate and operations / the rate of the
+    units that can do them, in ms: the attention products at the tensor
+    cores' fp32-accurate (3xTF32) rate, other work at the fp32 rate of the
+    CUDA cores. The bound at the CUDA cores' rate stays beside it as
+    bound_ms_fp32_cores."""
     t_bytes = kern["bytes"] / HBM_BYTES_PER_S * 1e3
-    t_ops = kern["flops"] / FP32_FLOPS * 1e3
+    t_ops = kern["flops"] / (FP32_TC_FLOPS if tensor_cores
+                             else FP32_FLOPS) * 1e3
     kern["bound_ms"] = max(t_bytes, t_ops)
     kern["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    if tensor_cores:
+        kern["bound_ms_fp32_cores"] = max(
+            t_bytes, kern["flops"] / FP32_FLOPS * 1e3)
+
+
+def device_times(torch, fns: dict) -> dict:
+    """torch.profiler over 10 calls of each fn: every CUDA kernel it ran,
+    with its mean device time per call in ms."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        out[name] = [
+            {"kernel": e.key[:120],
+             "ms": getattr(e, "device_time_total", 0.0) / 10 / 1e3}
+            for e in prof.key_averages()
+            if getattr(e, "device_time_total", 0.0) > 0]
+    return out
+
+
+def tf32_rna(torch, x):
+    """fp32 x rounded to TF32 as cvt.rna.tf32.f32 does: 10 mantissa bits,
+    halves away from zero."""
+    return ((x.contiguous().view(torch.int32) + 0x1000)
+            & -0x2000).view(torch.float32)
 
 
 def rel_err(a, b) -> float:
@@ -649,7 +698,7 @@ def run(torch, workdir: Path):
     from espnet_tpu_torch.models.transducer import TransducerModel
     from espnet_tpu_torch.nn.initialize import init_like_flax
     from espnet_tpu_torch.ops import _cuda, rnnt
-    from espnet_tpu_torch.ops.attention import (fused_attention,
+    from espnet_tpu_torch.ops.attention import (_launch_fwd, fused_attention,
                                                 fused_attention_bwd,
                                                 fused_attention_bwd_plain,
                                                 fused_attention_plain,
@@ -793,6 +842,28 @@ def run(torch, workdir: Path):
                                                   scale=sm_scale)
 
         k1_err = float((k1() - k1_plain()).abs().max())
+        # two launches on the same input give the same bits, stats too
+        o1, s1 = _launch_fwd(q, k, v, bias, False, sm_scale, True)
+        o2, s2 = _launch_fwd(q, k, v, bias, False, sm_scale, True)
+        k1_same = bool(torch.equal(o1, o2) and torch.equal(s1, s2))
+        del o1, s1, o2, s2
+        # why the scores stay fp32 FMA on the CUDA cores: against float64,
+        # the plain version's own error, and that of the same attention
+        # with its scores formed as 3xTF32 tensor-core products
+        ref64 = fused_attention_plain(q.double(), k.double(), v.double(),
+                                      bias.double(), sm_scale=sm_scale)
+        qh, kh = tf32_rna(torch, q), tf32_rna(torch, k)
+        ql, kl = tf32_rna(torch, q - qh), tf32_rna(torch, k - kh)
+        s3 = (ql @ kh.transpose(-1, -2) + qh @ kl.transpose(-1, -2)
+              + qh @ kh.transpose(-1, -2)) * sm_scale + bias
+        k1_precision = {
+            "max_abs_score": float((q @ k.transpose(-1, -2)).abs().max())
+            * sm_scale,
+            "plain_vs_float64": float((k1_plain() - ref64).abs().max()),
+            "kernel_vs_float64": float((k1() - ref64).abs().max()),
+            "tf32x3_scores_vs_plain": float(
+                (torch.softmax(s3, dim=-1) @ v - k1_plain()).abs().max())}
+        del ref64, qh, kh, ql, kl, s3
         logmel_kw = dict(fs=fe.fs, n_fft=fe.n_fft, hop_length=fe.hop_length,
                          n_mels=fe.n_mels)
         window = torch.hann_window(fe.n_fft, device="cuda")
@@ -805,17 +876,29 @@ def run(torch, workdir: Path):
         def k2_plain():
             return fused_logmel_plain(speech, **logmel_kw)
 
-        def k2_library():
-            spec = torch.stft(speech, fe.n_fft, fe.hop_length,
-                              window=window, center=True, pad_mode="reflect",
+        def stft_mel(wave):
+            spec = torch.stft(wave, fe.n_fft, fe.hop_length, window=window,
+                              center=True, pad_mode="reflect",
                               return_complex=True)
             power = spec.real.square() + spec.imag.square()
             return torch.log(torch.clamp(power.transpose(1, 2) @ melw,
                                          min=1e-10))
 
+        def k2_library():
+            return stft_mel(speech)
+
         out2, ref2 = k2(), k2_plain()
         sel = ref2 > float(torch.log(torch.tensor(K2_MIN_MEL)))
         k2_err = float((out2 - ref2)[sel].abs().max())
+        k2_same = bool(torch.equal(out2, k2()))
+
+        # K2 on the first long-form train batch (~1.1 M samples a row)
+        lwave = ltrain_batch["speech"].float().contiguous()
+        lout, lref = (fused_logmel(lwave, **logmel_kw),
+                      fused_logmel_plain(lwave, **logmel_kw))
+        lsel = lref > float(torch.log(torch.tensor(K2_MIN_MEL)))
+        k2_long_err = float((lout - lref)[lsel].abs().max())
+        del lout, lref, lsel
 
     # K1b: the kernel through autograd against the plain version's
     # autograd, with every input (the bias too) needing a gradient
@@ -930,30 +1013,73 @@ def run(torch, workdir: Path):
                            ltrain_batch)
 
     Bw, S = speech.shape
-    frames = Bw * out2.shape[1]
     nf, n_fft = fe.n_fft // 2 + 1, fe.n_fft
     mel_nnz = int((melw != 0).sum())
+
+    # the least work of K1 and K2 at a shape: K1's two products of the
+    # attention with q, k, v and the bias read and the output written; for
+    # K2 an FFT (2.5 N log2 N per frame), the window, the power and only the
+    # nonzero mel weights, with the wave read and the log-mel written
+    def k1_work(q_, b_):
+        B_, H_, T_, d_ = q_.shape
+        return {"flops": 4.0 * B_ * H_ * T_ * T_ * d_,
+                "bytes": 4.0 * (4 * B_ * H_ * T_ * d_ + b_.numel())}
+
+    def k2_work(wave):
+        B_, S_ = wave.shape
+        frames = B_ * (S_ // fe.hop_length + 1)
+        return {"flops": frames * (2.5 * n_fft * math.log2(n_fft) + n_fft
+                                   + 3 * nf + 2 * mel_nnz + fe.n_mels),
+                "bytes": 4.0 * (B_ * S_ + n_fft + mel_nnz
+                                + frames * fe.n_mels)}
+
+    with torch.no_grad():
+        k1_train = {"shape": list(tq.shape), **k1_work(tq, tbias),
+                    "ms": time_ms(torch, lambda: fused_attention(
+                        tq, tk, tv, tbias, sm_scale=sm_scale)),
+                    "plain_ms": time_ms(torch, lambda: fused_attention_plain(
+                        tq, tk, tv, tbias, sm_scale=sm_scale)),
+                    "library_ms": time_ms(torch, lambda: (
+                        F.scaled_dot_product_attention(
+                            tq, tk, tv, attn_mask=tbias, scale=sm_scale)))}
+        k2_long = {"shape": list(lwave.shape), "max_abs_err": k2_long_err,
+                   **k2_work(lwave),
+                   "ms": time_ms(torch, lambda: fused_logmel(lwave,
+                                                             **logmel_kw)),
+                   "plain_ms": time_ms(torch, lambda: fused_logmel_plain(
+                       lwave, **logmel_kw)),
+                   "library_ms": time_ms(torch, lambda: stft_mel(lwave))}
+        bound(k1_train, tensor_cores=True)
+        bound(k2_long)
+        # the device kernels behind each time at the decode shapes: which
+        # kernels SDPA and torch.stft run, and each one's device time
+        profiled = device_times(torch, {
+            "flash_attn_fwd": k1, "sdpa": k1_library,
+            "logmel_fwd": k2, "stft_mel": k2_library})
+
     checks = [
-        {"name": "flash_attn_fwd", "shape": [B, H, T, d], "tol": K1_TOL},
+        {"name": "flash_attn_fwd", "shape": [B, H, T, d], "tol": K1_TOL,
+         "same_bits_twice": k1_same, "score_precision": k1_precision},
         {"name": "flash_attn_bwd", "shape": [Bt, Ht, Tt, dt],
          "tol": K1B_TOL, "tol_of": "max abs err / max |plain|",
          "cases": k1b_errs},
         {"name": "logmel_fwd", "shape": [Bw, S], "tol": K2_TOL,
          "min_mel": K2_MIN_MEL,
-         "max_abs_err_all_frames": float((out2 - ref2).abs().max())},
+         "max_abs_err_all_frames": float((out2 - ref2).abs().max()),
+         "same_bits_twice": k2_same,
+         "long_form": {"shape": list(lwave.shape),
+                       "max_abs_err": k2_long_err}},
         {"name": "rnnt_alpha+rnnt_beta", "shape": [Bk, Tk3, U1k, Vk],
          "tol": K3_TOL, "tol_of": "max abs err / max |plain|",
          "T_b": enc_lens.tolist(), "U_b": text_lens.tolist(),
          "cases": k3_errs},
         *banded["checks"],
     ]
-    # the least work of each function, for its bound: K1's two products
-    # of the attention; K1b's five (q k^T, do v^T, P^T do, dS^T q, dS k)
-    # with q, k, v, o, do and the bias read and dq, dk, dv and dbias
-    # written; for K2 not the dense DFT the kernel does but an FFT
-    # (2.5 N log2 N per frame), the window, the power and only the
-    # nonzero mel weights; for K3 the blank and emit entries inside each
-    # sample's lattice read, the whole (B, T, U+1) lattice written
+    # the least work of each function, for its bound: K1 and K2 as above;
+    # K1b's five products (q k^T, do v^T, P^T do, dS^T q, dS k) with q, k,
+    # v, o, do and the bias read and dq, dk, dv and dbias written; for K3
+    # the blank and emit entries inside each sample's lattice read, the
+    # whole (B, T, U+1) lattice written
     kernels = [
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": "espnet_tpu_torch/csrc/flash_attn.cu",
@@ -961,8 +1087,11 @@ def run(torch, workdir: Path):
          "max_abs_err": k1_err,
          "ms": time_ms(torch, k1), "plain_ms": time_ms(torch, k1_plain),
          "library_ms": time_ms(torch, k1_library),
-         "flops": 4.0 * B * H * T * T * d,
-         "bytes": 4.0 * (4 * B * H * T * d + B * H * T * T)},
+         "library_note": ("scaled_dot_product_attention with the float "
+                          "bias as attn_mask"),
+         **k1_work(q, bias), "at_train_shape": k1_train,
+         "device_kernels": {"kernel": profiled["flash_attn_fwd"],
+                            "library": profiled["sdpa"]}},
         {"name": "flash_attn_bwd", "route": "cuda",
          "source": "espnet_tpu_torch/csrc/flash_attn_bwd.cu",
          "replaces": ("jax/experimental/pallas/ops/tpu/flash_attention.py"
@@ -983,10 +1112,10 @@ def run(torch, workdir: Path):
          "max_abs_err": k2_err,
          "ms": time_ms(torch, k2), "plain_ms": time_ms(torch, k2_plain),
          "library_ms": time_ms(torch, k2_library),
-         "flops": frames * (2.5 * n_fft * math.log2(n_fft) + n_fft
-                            + 3 * nf + 2 * mel_nnz + fe.n_mels),
-         "bytes": 4.0 * (Bw * S + n_fft + mel_nnz
-                         + frames * fe.n_mels)},
+         "library_note": "torch.stft, the power and the mel product",
+         **k2_work(speech), "at_long_form_train_batch": k2_long,
+         "device_kernels": {"kernel": profiled["logmel_fwd"],
+                            "library": profiled["stft_mel"]}},
         {"name": "rnnt_alpha", "route": "cuda",
          "source": "espnet_tpu_torch/csrc/rnnt.cu",
          "replaces": ("espnet_tpu/ops/pallas/rnnt_kernel.py:53 (_alpha_kernel"
@@ -1015,10 +1144,17 @@ def run(torch, workdir: Path):
         *banded["kernels"],
     ]
     for kern in kernels:
-        bound(kern)
+        bound(kern, tensor_cores="attn" in kern["name"])
     emit({"phase": "kernel_checks", "checks": checks})
     if not k1_err <= K1_TOL:
         raise AssertionError(f"flash_attn_fwd disagrees: {k1_err}")
+    if not (k1_same and k2_same):
+        raise AssertionError("a second launch on the same input gave other "
+                             f"bits: flash_attn_fwd {k1_same}, logmel_fwd "
+                             f"{k2_same}")
+    if not k2_long_err <= K2_TOL:
+        raise AssertionError(f"logmel_fwd disagrees on the long-form "
+                             f"batch: {k2_long_err}")
     if not k1b_err <= K1B_TOL:
         raise AssertionError(f"flash_attn_bwd disagrees: {k1b_errs}")
     if not k2_err <= K2_TOL:
@@ -1388,6 +1524,9 @@ def run(torch, workdir: Path):
         {key: kern[key] for key in (
             "name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        | {key: kern[key] for key in (
+            "bound_ms_fp32_cores", "at_train_shape",
+            "at_long_form_train_batch", "device_kernels") if key in kern}
         | {"launches": main_runs[kern["name"]][kern["name"]]}
         | {f"launches_per_{kind_}": {
             model_: counts[kern["name"]]

@@ -5,7 +5,13 @@ Where ``_fused_eligible()`` holds, the frontend computes its features
 with ``ops.logmel.fused_logmel``: the log-mel CUDA kernel on the card
 (under both "auto" and "pallas"; the JAX package's "auto" picks XLA
 matmuls, a choice made for the TPU's compiler) and the kernel's plain
-version on the CPU. Otherwise it takes the plain STFT and log-mel ops.
+version on the CPU. The kernel (csrc/logmel.cu, replacing
+espnet_tpu/ops/pallas/logmel_kernel.py:fused_logmel) is a shared-memory
+FFT per frame with a sparse mel sum, bound by the bytes of its wave and
+log-mel; so besides the JAX package's rule (Hann window of n_fft samples,
+centred, hop | n_fft, the default mel scale, natural log) eligibility asks
+what the FFT takes: a power-of-two n_fft from 64 to 2048 and at most 128
+mel bins. Otherwise the frontend takes the plain STFT and log-mel ops.
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from espnet_tpu_torch.ops.logmel import fused_logmel
+from espnet_tpu_torch.ops.logmel import fused_logmel, kernel_takes
 from espnet_tpu_torch.ops.mel import log_mel
 from espnet_tpu_torch.ops.stft import stft_power
 from espnet_tpu_torch.utils.masks import make_non_pad_mask, mask_fill
@@ -44,7 +50,7 @@ class DefaultFrontend:
         return (self.use_fused_kernel in ("auto", "pallas")
                 and self.win_length in (None, self.n_fft)
                 and self.window == "hann" and self.center
-                and self.n_fft % self.hop_length == 0
+                and kernel_takes(self.n_fft, self.hop_length, self.n_mels)
                 and self.fmin == 0.0 and self.fmax is None
                 and not self.htk and self.log_base is None)
 

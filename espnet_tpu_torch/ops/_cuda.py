@@ -112,7 +112,7 @@ def lib() -> ctypes.CDLL:
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         f32 = ctypes.c_float
         L.flash_attn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                     i64, i64, i64, i64, i, f32, p]
+                                     *[i64] * 13, i, f32, p]
         L.flash_attn_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, p, p,
                                          i, i, i, i, i, i64, i64, i64, i64,
                                          i, f32, p]
@@ -120,7 +120,7 @@ def lib() -> ctypes.CDLL:
         for fn in (L.flash_attn_fwd, L.flash_attn_bwd_dkv,
                    L.flash_attn_bwd_dq):
             fn.restype = i
-        L.logmel_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        L.logmel_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         L.logmel_fwd.restype = i
         L.rnnt_alpha.argtypes = [p, p, p, p, p, p, i, i, i, p]
         L.rnnt_beta.argtypes = [p, p, p, p, p, i, i, i, p]

@@ -102,16 +102,21 @@ def _bias_args(bias, shape):
 
 
 def _launch_fwd(q, k, v, bias, causal, sm_scale, with_stats: bool):
+    """The forward kernel on q, k, v with any batch, head and time strides
+    (the head dimension is made contiguous where it is not) -> out
+    (B, H, Tq, d) and, with_stats, the row statistics (B, H, Tq, 2)."""
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     B, H, Tq, d = q.shape
     Tk = k.shape[2]
-    out = torch.empty_like(q)
+    out = torch.empty(B, H, Tq, d, dtype=torch.float32, device=q.device)
     stats = (torch.empty(B, H, Tq, 2, dtype=torch.float32, device=q.device)
              if with_stats else None)
     bias_ptr, strides = _bias_args(bias, (B, H, Tq, Tk))
     err = _cuda.lib().flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, out.data_ptr(),
         None if stats is None else stats.data_ptr(), B, H, Tq, Tk, d,
-        *strides, int(causal), float(sm_scale), _cuda.stream_ptr(q.device))
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *strides,
+        int(causal), float(sm_scale), _cuda.stream_ptr(q.device))
     _cuda.check(err, "flash_attn_fwd")
     _cuda.LAUNCHES["flash_attn_fwd"] += 1
     return out, stats
@@ -200,6 +205,5 @@ def fused_attention(q, k, v, bias=None, *, causal: bool = False,
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (q, k, v, bias)):
         return FlashAttention.apply(q, k, v, bias, causal, sm_scale)
-    out, _ = _launch_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
-                         bias, causal, sm_scale, False)
+    out, _ = _launch_fwd(q, k, v, bias, causal, sm_scale, False)
     return out

@@ -7,11 +7,13 @@ skip tests/conftest.py, which sets JAX up:
 
 Each is marked ``gpu`` and skips, with its reason, where there is no card.
 The kernels are held against their plain PyTorch versions on the same
-inputs (fp32 sums in another order: 1e-4 for attention outputs of O(1),
-1e-3 in the log domain for log-mel energies, and 2e-5 of each
-gradient's own scale for the attention backward, whose sums run over at
-most Tq or Tk terms; the banded attention's the same, its sums running
-over at most 2W + 1 keys). The RNN-T sweeps take the same fp32 steps as
+inputs (fp32 sums in another order, the attention forward's products as
+3xTF32 on the tensor cores: 1e-4 for attention outputs of O(1) and for
+its row statistics, 1e-3 in the log domain for log-mel energies, and
+2e-5 of each gradient's own scale for the attention backward, whose sums
+run over at most Tq or Tk terms; the banded attention's the same, its
+sums running over at most 2W + 1 keys). The attention forward and the
+log-mel give the same bits when launched twice on the same input. The RNN-T sweeps take the same fp32 steps as
 their plain versions: nll, alpha, beta and the closed-form gradient
 within 1e-5 of their largest entry.
 """
@@ -38,15 +40,37 @@ def _cuda_or_skip():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
 
 
+def _relpos_bias(B, H, T, d, g):
+    """A conformer block's rel-pos + padding bias: the rel-shifted
+    (q + pos_bias_v) p^T * scale of RelPositionMultiHeadedAttention, with
+    random weights on a random input, plus -1e9 past each row's length."""
+    from espnet_tpu_torch.nn.attention import RelPositionMultiHeadedAttention
+    from espnet_tpu_torch.nn.embedding import RelPositionalEncoding
+    attn = RelPositionMultiHeadedAttention(H, H * d).cuda()
+    with torch.no_grad():
+        for p in attn.parameters():
+            p.copy_(0.2 * torch.randn(p.shape, generator=g, device="cuda"))
+        x = torch.randn(B, T, H * d, generator=g, device="cuda")
+        _, pos = RelPositionalEncoding(H * d).cuda().eval()(x)
+        lens = torch.randint(1, T + 1, (B,), generator=g, device="cuda")
+        mask = torch.arange(T, device="cuda")[None] < lens[:, None]
+        return attn.kernel_inputs(x, x, x, pos, mask[:, None])[3]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,H,Tq,Tk,d,causal", [
     (64, 4, 145, 145, 64, False),
     (2, 3, 7, 70, 40, True),
     (3, 2, 130, 129, 128, False),
     (1, 1, 65, 65, 16, True),
+    (25, 4, 145, 145, 64, False),
+    (5, 4, 17, 145, 64, False),
+    (2, 3, 33, 47, 20, False),
+    (2, 3, 70, 7, 40, True),
 ])
 def test_flash_attn_kernel_matches_plain(B, H, Tq, Tk, d, causal):
     _cuda_or_skip()
+    from espnet_tpu_torch.ops.attention import _launch_fwd, softmax_stats_plain
     g = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = (torch.randn(B, H, T, d, generator=g, device="cuda")
                for T in (Tq, Tk, Tk))
@@ -54,7 +78,13 @@ def test_flash_attn_kernel_matches_plain(B, H, Tq, Tk, d, causal):
     pad = torch.where(torch.arange(Tk, device="cuda")[None] < lens[:, None],
                       0.0, -1e9)
     bias = torch.randn(B, H, Tq, Tk, generator=g, device="cuda")
-    for b in (bias + pad[:, None, None, :], bias[:, :1, :1], None):
+    # rows whose every key is masked: the kernel gives them 1/Tk each
+    masked = bias + pad[:, None, None, :]
+    masked[:, :, ::5] = -1e9
+    biases = [bias + pad[:, None, None, :], bias[:, :1, :1], None, masked]
+    if Tq == Tk and d == 64:
+        biases.append(_relpos_bias(B, H, Tq, d, g))
+    for b in biases:
         n0 = _cuda.LAUNCHES["flash_attn_fwd"]
         out = fused_attention(q, k, v, b, causal=causal, sm_scale=d ** -0.5)
         torch.cuda.synchronize()
@@ -62,6 +92,21 @@ def test_flash_attn_kernel_matches_plain(B, H, Tq, Tk, d, causal):
         ref = fused_attention_plain(q, k, v, b, causal=causal,
                                     sm_scale=d ** -0.5)
         torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+        # two launches give the same bits, the row statistics too
+        runs = [_launch_fwd(q, k, v, b, causal, d ** -0.5, True)
+                for _ in range(2)]
+        assert torch.equal(runs[0][0], runs[1][0])
+        assert torch.equal(runs[0][1], runs[1][1])
+        # q, k, v as views of (B, T, H, d) projections: read through their
+        # strides, the same bits
+        views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+                 for t in (q, k, v)]
+        assert torch.equal(
+            _launch_fwd(*views, b, causal, d ** -0.5, True)[0], runs[0][0])
+        torch.testing.assert_close(
+            runs[0][1], softmax_stats_plain(q, k, b, causal=causal,
+                                            sm_scale=d ** -0.5),
+            atol=1e-4, rtol=0)
 
 
 @pytest.mark.gpu
@@ -69,6 +114,9 @@ def test_flash_attn_kernel_matches_plain(B, H, Tq, Tk, d, causal):
     (64, 74656, 16000, 512, 128, 80),
     (3, 1281, 16000, 512, 128, 80),
     (2, 3000, 8000, 128, 64, 20),
+    (4, 1_100_000, 16000, 512, 128, 80),
+    (2, 20000, 16000, 1024, 256, 80),
+    (2, 257, 16000, 512, 128, 80),
 ])
 def test_logmel_kernel_matches_plain(B, S, fs, n_fft, hop, n_mels):
     _cuda_or_skip()
@@ -81,6 +129,20 @@ def test_logmel_kernel_matches_plain(B, S, fs, n_fft, hop, n_mels):
     assert _cuda.LAUNCHES["logmel_fwd"] == n0 + 1
     torch.testing.assert_close(out, fused_logmel_plain(x, **kw), atol=1e-3,
                                rtol=0)
+    assert torch.equal(out, fused_logmel(x, **kw))
+
+
+@pytest.mark.gpu
+def test_logmel_kernel_refuses_a_shape_it_does_not_take():
+    _cuda_or_skip()
+    x = torch.randn(2, 4000, device="cuda")
+    for kw in ({"n_fft": 384, "hop_length": 128}, {"n_fft": 4096,
+                                                   "hop_length": 1024},
+               {"n_fft": 512, "hop_length": 96}, {"n_mels": 129}):
+        n0 = _cuda.LAUNCHES["logmel_fwd"]
+        with pytest.raises(ValueError, match="power-of-two n_fft"):
+            fused_logmel(x, **kw)
+        assert _cuda.LAUNCHES["logmel_fwd"] == n0
 
 
 @pytest.mark.gpu

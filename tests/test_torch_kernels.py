@@ -4,7 +4,10 @@ On a CPU tensor each wrapper runs its kernel's plain PyTorch version; that
 version is held here against the JAX function (the einsum path of
 fused_attention, and fused_logmel in interpret mode). The CUDA kernels
 themselves are held against the plain versions by tests/test_torch_gpu.py,
-which needs a card.
+which needs a card; here are the host-side parts of the kernels: the
+log-mel kernel's tables (window, twiddles, packed mel filterbank), its
+eligibility rule, and the arithmetic of the attention kernel's 3xTF32
+products, emulated in plain torch.
 """
 
 import jax
@@ -22,10 +25,13 @@ from espnet_tpu.ops.stft import stft as jax_stft
 from espnet_tpu.ops.stft import stft_power as jax_stft_power
 from espnet_tpu.ops.stft import stft_segmented as jax_stft_segmented
 from espnet_tpu_torch.ops.attention import fused_attention
-from espnet_tpu_torch.ops.logmel import fused_logmel, n_frames
+from espnet_tpu_torch.frontends.default import DefaultFrontend
+from espnet_tpu_torch.ops.logmel import (fft_tables, fused_logmel,
+                                         kernel_takes, n_frames, pack_mel)
+from espnet_tpu_torch.ops.mel import mel_matrix
 from espnet_tpu_torch.ops.mel import log_mel, mel_filterbank
-from espnet_tpu_torch.ops.stft import (_windowed_dft_matrix, stft,
-                                       stft_segmented)
+from espnet_tpu_torch.ops.stft import (_windowed_dft_matrix, hann_window,
+                                       stft, stft_segmented)
 
 # fp32 throughout; the two frameworks sum in different orders, so outputs
 # agree to a few ulps of their magnitude (attention outputs are O(1))
@@ -134,3 +140,94 @@ def test_wrappers_raise_on_devices_without_a_kernel():
         fused_attention(q, q, q)
     with pytest.raises(RuntimeError, match="no kernel"):
         fused_logmel(torch.zeros(1, 4000, device="meta"))
+
+
+@pytest.mark.parametrize("fs,n_fft,n_mels", [
+    (16000, 512, 80), (8000, 128, 20), (16000, 1024, 80), (16000, 2048, 128),
+    (16000, 64, 40),
+])
+def test_packed_mel_table_reproduces_the_filterbank(fs, n_fft, n_mels):
+    idx, w = pack_mel(fs, n_fft, n_mels)
+    dense = mel_matrix(fs, n_fft, n_mels, 0.0, None, False, "cpu").numpy()
+    assert idx.dtype == np.int32 and w.dtype == np.float32
+    assert idx[:, 2].tolist() == np.concatenate(
+        [[0], np.cumsum(idx[:-1, 1])]).tolist()
+    assert len(w) == idx[:, 1].sum() <= 2 * (n_fft // 2 + 1)
+    unpacked = np.zeros_like(dense)
+    for m, (first, count, offset) in enumerate(idx):
+        unpacked[first:first + count, m] = w[offset:offset + count]
+    np.testing.assert_array_equal(unpacked, dense)
+    # the kernel's sums, over each filter's range only, give the dense
+    # product up to fp32 summation order
+    power = torch.from_numpy(np.random.RandomState(n_fft).rand(
+        3, n_fft // 2 + 1).astype(np.float32))
+    sparse = torch.stack([
+        (torch.from_numpy(w[o:o + c]) * power[:, f:f + c]).sum(-1)
+        for f, c, o in idx], dim=-1)
+    torch.testing.assert_close(sparse, power @ torch.from_numpy(dense),
+                               rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("n_fft", [64, 512, 2048])
+def test_fft_tables_are_the_window_and_rounded_float64_twiddles(n_fft):
+    win, tw = fft_tables(n_fft)
+    np.testing.assert_array_equal(win, hann_window(n_fft))
+    exact = np.exp(-2j * np.pi * np.arange(n_fft, dtype=np.float64) / n_fft)
+    assert tw.shape == (n_fft, 2) and tw.dtype == np.float32
+    np.testing.assert_array_equal(tw[:, 0], exact.real.astype(np.float32))
+    np.testing.assert_array_equal(tw[:, 1], exact.imag.astype(np.float32))
+
+
+def test_frontend_takes_the_kernel_only_where_the_fft_does():
+    assert kernel_takes(512, 128, 80) and kernel_takes(64, 64, 128)
+    assert kernel_takes(2048, 512, 80) and not kernel_takes(4096, 1024, 80)
+    assert not kernel_takes(400, 100, 80) and not kernel_takes(512, 96, 80)
+    assert not kernel_takes(512, 128, 129)
+    assert DefaultFrontend()._fused_eligible()
+    for kw in ({"n_fft": 400, "hop_length": 100}, {"n_fft": 384},
+               {"n_fft": 4096}, {"n_mels": 160}):
+        assert not DefaultFrontend(**kw)._fused_eligible(), kw
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: round to 10 mantissa bits, ties away from 0."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the attention kernel forms it: a = ah + al, b = bh + bl in
+    TF32, and lo*hi + hi*lo + hi*hi, each product exact in fp32 (11 x 11
+    bits) and summed in fp32."""
+    ah, bh = _tf32_rna(a), _tf32_rna(b)
+    al, bl = _tf32_rna(a - ah), _tf32_rna(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def test_3xtf32_products_keep_fp32_accuracy_at_the_decode_shape():
+    # the flagship decode's attention: (B, H, T, d) = (64, 4, 145, 64); the
+    # card's tolerance (1e-4 on outputs of O(1)) rests on this budget
+    rng = np.random.RandomState(0)
+    q, k, v = (torch.from_numpy(rng.randn(64, 4, 145, 64).astype(np.float32))
+               for _ in range(3))
+    # the rounding: 11 significant bits, halves away from zero (1 + 2^-11
+    # is a tie and goes up, -(1 + 2^-11) down)
+    x = np.concatenate([rng.randn(1000) * 10.0 ** rng.randint(-4, 4, 1000),
+                        [1 + 2.0 ** -11, -(1 + 2.0 ** -11), 3e-3]]
+                       ).astype(np.float32)
+    quantum = 2.0 ** (np.floor(np.log2(np.abs(x.astype(np.float64)))) - 10)
+    want = np.sign(x) * np.floor(np.abs(x) / quantum + 0.5) * quantum
+    np.testing.assert_array_equal(_tf32_rna(torch.from_numpy(x)).numpy(),
+                                  want.astype(np.float32))
+
+    def rel(a, ref):
+        return float((a.double() - ref).abs().max() / ref.abs().max())
+
+    s64 = q.double() @ k.double().transpose(-1, -2)
+    s = _mm_3xtf32(q, k.transpose(-1, -2))
+    assert rel(s, s64) < 1e-6
+    p = torch.softmax(s64 / 8.0, dim=-1).float()
+    o64 = p.double() @ v.double()
+    assert rel(_mm_3xtf32(p, v), o64) < 1e-6
+    # one TF32 product alone would not do
+    assert rel(_tf32_rna(q) @ _tf32_rna(k).transpose(-1, -2), s64) > 1e-5
