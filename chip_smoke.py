@@ -18,21 +18,25 @@ Phases, each printing one JSON line:
    at the decode shape (launched twice: the same bits, row statistics
    too), its backward at the train shape (with the real
    rel-pos + padding bias of the first conformer block, which needs a
-   gradient) and on a small causal case with Tq != Tk, the log-mel on
+   gradient; launched twice: the same bits) and on a small causal case
+   with Tq != Tk, the log-mel on
    the decode batch (launched twice: the same bits) and on the first
    long-form train batch, the
    RNN-T lattice sweeps with their closed-form gradient on the
    transducer's real joint logits of its first train batch and on a small
    ragged case, and the banded attention forward and backward on the
    first Longformer block's q, k, v and valid frames of the long-form
-   decode batch and of the first long-form train batch, and on small
-   ragged cases (T not a multiple of 64, W >= T, W = 0, a padded tail
-   longer than W); each kernel is timed beside the plain version and,
-   where one exists, one PyTorch library call (a yardstick only), the
-   attention forward also at the train shape and the log-mel also on
-   the long-form train batch, and torch.profiler names the device
-   kernels behind the attention forward, the log-mel and their library
-   calls at the decode shapes;
+   decode batch and of the first long-form train batch (the backward
+   launched twice: the same bits), and on small ragged cases (T not a
+   multiple of 64, W >= T, W = 0, a padded tail longer than W); each
+   kernel is timed beside the plain version and, where one exists, one
+   PyTorch library call (a yardstick only), the attention forward also at
+   the train shape and the log-mel also on the long-form train batch,
+   and torch.profiler names the device kernels, with their device times,
+   behind the attention forward, the log-mel and their library calls at
+   the decode shapes, and behind both attention backwards and SDPA's
+   autograd backward at their train shapes (the wrappers' host time,
+   ~25-35 us a call, is in the CUDA-event times);
 5. main_path: the flagship hybrid CTC/attention Conformer
    (assets/synth_asr_flagship) built by Speech2Text on the card decodes the
    first 64 held-out SynthSpeechCorpus utterances in fp32 (beam 10, CTC
@@ -602,13 +606,25 @@ def banded_checks(torch, lmodel, dspeech, dlens, tbatch) -> dict:
     blib_ins = [t.detach().clone().requires_grad_() for t in (bq, bk, bv)]
     blib_out = F.scaled_dot_product_attention(*blib_ins, attn_mask=bmask,
                                               scale=lscale)
+
+    def k4b():
+        return banded_attention_bwd(bq, bk, bv, bvalid, bout, bstats, bdout,
+                                    window=band, sm_scale=lscale)
+
+    def k4b_library():
+        return torch.autograd.grad(blib_out, blib_ins, bdout,
+                                   retain_graph=True)
+
+    # two launches at the path's shape give the same bits
+    k4b_same = all(torch.equal(a, b) for a, b in zip(k4b(), k4b()))
     try:
-        k4b_library_ms, k4b_library_note = time_ms(
-            torch, lambda: torch.autograd.grad(blib_out, blib_ins, bdout,
-                                               retain_graph=True)), None
+        k4b_library_ms, k4b_library_note = time_ms(torch, k4b_library), None
     except RuntimeError as e:   # a yardstick only: no backend may take it
         k4b_library_ms, k4b_library_note = None, str(e)[:300]
+    profiled = device_times(torch, {"kernel": k4b} | (
+        {"library": k4b_library} if k4b_library_ms is not None else {}))
     return {
+        "k4b_same": k4b_same,
         "k4_err": max(k4_errs.values()),
         "k4b_err": max(e["rel_err"] for case in k4b_errs.values()
                        for e in case.values()),
@@ -619,7 +635,7 @@ def banded_checks(torch, lmodel, dspeech, dlens, tbatch) -> dict:
              "cases": k4_errs},
             {"name": "banded_attn_bwd", "shape": [Bb, Hb, Tb, db],
              "window": band, "valid_frames": bvalid.sum(1).tolist(),
-             "tol": K4B_TOL,
+             "tol": K4B_TOL, "same_bits_twice": k4b_same,
              "tol_of": ("max abs err / max |plain| (the case's largest "
                         "gradient for a gradient zero in exact arithmetic)"),
              "cases": k4b_errs}],
@@ -653,9 +669,7 @@ def banded_checks(torch, lmodel, dspeech, dlens, tbatch) -> dict:
                           "espnet_tpu/ops/attention_kernels.py:116)"),
              "max_abs_err": max(e["max_abs_err"]
                                 for e in k4b_errs["train"].values()),
-             "ms": time_ms(torch, lambda: banded_attention_bwd(
-                 bq, bk, bv, bvalid, bout, bstats, bdout, window=band,
-                 sm_scale=lscale)),
+             "ms": time_ms(torch, k4b),
              "plain_ms": time_ms(torch, lambda: banded_attention_bwd_plain(
                  bq, bk, bv, bvalid, bout, bstats, bdout, window=band,
                  sm_scale=lscale)),
@@ -663,6 +677,7 @@ def banded_checks(torch, lmodel, dspeech, dlens, tbatch) -> dict:
              "library_note": k4b_library_note or (
                  "autograd backward of scaled_dot_product_attention with "
                  "the band and the valid keys as a float mask"),
+             "device_kernels": profiled,
              "flops": 10.0 * db * b_pairs,
              "bytes": 4.0 * (8 * Bb * Hb * Tb * db + 2 * Bb * Hb * Tb)
              + Bb * Tb}]}
@@ -954,6 +969,8 @@ def run(torch, workdir: Path):
         k1b_library_ms, k1b_library_note = time_ms(torch, k1b_library), None
     except RuntimeError as e:   # a yardstick only: no backend may take it
         k1b_library_ms, k1b_library_note = None, str(e)[:300]
+    # two launches at the path's shape give the same bits
+    k1b_same = all(torch.equal(a, b) for a, b in zip(k1b(), k1b()))
 
     # K3: the lattice sweeps on the transducer's joint logits of its first
     # train batch (real ragged T_b and U_b), and on a small ragged case
@@ -1056,13 +1073,16 @@ def run(torch, workdir: Path):
         profiled = device_times(torch, {
             "flash_attn_fwd": k1, "sdpa": k1_library,
             "logmel_fwd": k2, "stft_mel": k2_library})
+    # and behind the attention backward and SDPA's at the train shape
+    profiled |= device_times(torch, {"flash_attn_bwd": k1b} | (
+        {"sdpa_bwd": k1b_library} if k1b_library_ms is not None else {}))
 
     checks = [
         {"name": "flash_attn_fwd", "shape": [B, H, T, d], "tol": K1_TOL,
          "same_bits_twice": k1_same, "score_precision": k1_precision},
         {"name": "flash_attn_bwd", "shape": [Bt, Ht, Tt, dt],
          "tol": K1B_TOL, "tol_of": "max abs err / max |plain|",
-         "cases": k1b_errs},
+         "same_bits_twice": k1b_same, "cases": k1b_errs},
         {"name": "logmel_fwd", "shape": [Bw, S], "tol": K2_TOL,
          "min_mel": K2_MIN_MEL,
          "max_abs_err_all_frames": float((out2 - ref2).abs().max()),
@@ -1104,6 +1124,8 @@ def run(torch, workdir: Path):
          "library_note": k1b_library_note or (
              "autograd backward of scaled_dot_product_attention with the "
              "float bias needing a gradient"),
+         "device_kernels": {"kernel": profiled["flash_attn_bwd"],
+                            "library": profiled.get("sdpa_bwd")},
          "flops": 10.0 * Bt * Ht * Tt * Tt * dt,
          "bytes": 4.0 * (8 * Bt * Ht * Tt * dt + 2 * Bt * Ht * Tt * Tt)},
         {"name": "logmel_fwd", "route": "cuda",
@@ -1148,10 +1170,11 @@ def run(torch, workdir: Path):
     emit({"phase": "kernel_checks", "checks": checks})
     if not k1_err <= K1_TOL:
         raise AssertionError(f"flash_attn_fwd disagrees: {k1_err}")
-    if not (k1_same and k2_same):
+    if not (k1_same and k2_same and k1b_same and banded["k4b_same"]):
         raise AssertionError("a second launch on the same input gave other "
                              f"bits: flash_attn_fwd {k1_same}, logmel_fwd "
-                             f"{k2_same}")
+                             f"{k2_same}, flash_attn_bwd {k1b_same}, "
+                             f"banded_attn_bwd {banded['k4b_same']}")
     if not k2_long_err <= K2_TOL:
         raise AssertionError(f"logmel_fwd disagrees on the long-form "
                              f"batch: {k2_long_err}")

@@ -80,11 +80,11 @@
 // -1e9 the sum of the two rounds to -1e9 in fp32, and P would come back as 1
 // instead of the forward's uniform 1/Tk.
 
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
 #include <type_traits>
+
+#include "attn_common.cuh"
 
 namespace {
 
@@ -93,67 +93,6 @@ constexpr int MAXW = 4;        // warps per block at most
 constexpr int BM_MAX = 16 * MAXW;
 constexpr int SBS = BN + 8;    // padded row of the bias tile
 constexpr int DMAX = 128;      // largest head size taken
-
-// element strides of q, k or v over batch, head and time; d is contiguous
-struct Strides {
-  long long b, h, t;
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// asynchronous copies into shared memory; with ok false the bytes are zeroed
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// x = hi + lo + O(2^-22 x), both parts TF32 (round to nearest)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  const float rest = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a b in 3xTF32: the small cross terms first, then hi * hi
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
-                                           const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4],
-                                           const uint32_t (&bh)[2],
-                                           const uint32_t (&bl)[2]) {
-  mma_tf32(c, al, bh);
-  mma_tf32(c, ah, bl);
-  mma_tf32(c, ah, bh);
-}
 
 template <int DP>
 __global__ void __launch_bounds__(MAXW * 32)

@@ -5,7 +5,8 @@ expose plain ``extern "C"`` entry points. On first use they are compiled
 with ``nvcc`` for ``sm_90a`` (one ``nvcc -c`` per source, all started
 together, then one link) into ``espnet_tpu_torch/_build/`` and loaded
 with ``ctypes``. A hash of the sources and flags decides whether to
-rebuild; a file lock keeps concurrent processes from building at once.
+rebuild (every file under ``csrc``, the headers the sources include too);
+a file lock keeps concurrent processes from building at once.
 
 Every wrapper that launches a kernel adds one to ``LAUNCHES[name]`` at
 the launch, and nowhere else, so a run can show which kernels its path
@@ -56,10 +57,12 @@ def _nvcc() -> str:
 
 
 def _source_hash() -> str:
+    """Digest of the flags and of every file under csrc: a header that
+    the sources include changes it as a source does."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(str(path.relative_to(CSRC)).encode())
+        h.update(path.read_bytes())
     return h.hexdigest()
 
 
@@ -114,9 +117,10 @@ def lib() -> ctypes.CDLL:
         L.flash_attn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                      *[i64] * 13, i, f32, p]
         L.flash_attn_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                                         i, i, i, i, i, i64, i64, i64, i64,
-                                         i, f32, p]
-        L.flash_attn_bwd_dq.argtypes = [p, p, p, i, i, i, i, i, f32, p]
+                                         i, i, i, i, i, *[i64] * 13, i, f32,
+                                         p]
+        L.flash_attn_bwd_dq.argtypes = [p, p, p, i, i, i, i, i, i64, i64,
+                                        i64, f32, p]
         for fn in (L.flash_attn_fwd, L.flash_attn_bwd_dkv,
                    L.flash_attn_bwd_dq):
             fn.restype = i
@@ -127,13 +131,15 @@ def lib() -> ctypes.CDLL:
         L.rnnt_alpha.restype = L.rnnt_beta.restype = i
         L.banded_attn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f32,
                                       p]
-        L.banded_attn_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i,
-                                          i, i, f32, p]
-        L.banded_attn_bwd_dq.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
-                                         i, f32, p]
+        L.banded_attn_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, p, p, i,
+                                          i, i, i, i, *[i64] * 9, f32, p]
+        L.banded_attn_bwd_dq.argtypes = [p, p, p, i, i, i, i, i, i64, i64,
+                                         i64, f32, p]
         for fn in (L.banded_attn_fwd, L.banded_attn_bwd_dkv,
                    L.banded_attn_bwd_dq):
             fn.restype = i
+        L.banded_attn_bwd_scratch.argtypes = [i, i, i, i]
+        L.banded_attn_bwd_scratch.restype = i64
         _lib = L
     return _lib
 

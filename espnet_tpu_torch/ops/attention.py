@@ -5,7 +5,9 @@ the VJP of the Pallas flash attention it reaches on the TPU. On a CUDA
 tensor the forward launches ``flash_attn_fwd`` (csrc/flash_attn.cu); when
 a gradient is wanted it runs as a ``torch.autograd.Function`` whose
 backward launches ``flash_attn_bwd`` (csrc/flash_attn_bwd.cu: one dk/dv/dS
-kernel, then one dq kernel). On a CPU tensor it runs
+kernel, then one dq kernel). Both read q, k and v through their strides
+(the conformer's are views of its projections), so nothing is copied
+before them. On a CPU tensor it runs
 ``fused_attention_plain``, the same math in plain torch, whose gradient is
 torch's own autograd.
 
@@ -101,11 +103,17 @@ def _bias_args(bias, shape):
     return bias.data_ptr(), bias.stride()
 
 
+def _head_contiguous(*ts):
+    """The kernels read any batch, head and time strides but need the
+    head dimension contiguous."""
+    return tuple(t if t.stride(-1) == 1 else t.contiguous() for t in ts)
+
+
 def _launch_fwd(q, k, v, bias, causal, sm_scale, with_stats: bool):
     """The forward kernel on q, k, v with any batch, head and time strides
     (the head dimension is made contiguous where it is not) -> out
     (B, H, Tq, d) and, with_stats, the row statistics (B, H, Tq, 2)."""
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    q, k, v = _head_contiguous(q, k, v)
     B, H, Tq, d = q.shape
     Tk = k.shape[2]
     out = torch.empty(B, H, Tq, d, dtype=torch.float32, device=q.device)
@@ -142,10 +150,12 @@ def fused_attention_bwd(q, k, v, bias, out, stats, dout, *,
             raise ValueError(f"fused_attention_bwd: {name} must be float32 "
                              f"{tuple(shape)} on {q.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if not all(t.is_contiguous() for t in (q, k, v, out, stats, dout)):
-        raise ValueError("fused_attention_bwd: q, k, v, out, stats and "
-                         "dout must be contiguous")
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if not all(t.is_contiguous() for t in (out, stats, dout)):
+        raise ValueError("fused_attention_bwd: out, stats and dout must be "
+                         "contiguous")
+    q, k, v = _head_contiguous(q, k, v)
+    dq, dk, dv = (torch.empty(t.shape, dtype=torch.float32, device=q.device)
+                  for t in (q, k, v))
     ds = torch.empty(B, H, Tq, Tk, dtype=torch.float32, device=q.device)
     bias_ptr, strides = _bias_args(bias, (B, H, Tq, Tk))
     stream = _cuda.stream_ptr(q.device)
@@ -153,12 +163,13 @@ def fused_attention_bwd(q, k, v, bias, out, stats, dout, *,
     err = lib.flash_attn_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, out.data_ptr(),
         dout.data_ptr(), stats.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        ds.data_ptr(), B, H, Tq, Tk, d, *strides, int(causal),
-        float(sm_scale), stream)
+        ds.data_ptr(), B, H, Tq, Tk, d, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *strides, int(causal), float(sm_scale), stream)
     _cuda.check(err, "flash_attn_bwd_dkv")
     _cuda.LAUNCHES["flash_attn_bwd"] += 1
     err = lib.flash_attn_bwd_dq(ds.data_ptr(), k.data_ptr(), dq.data_ptr(),
-                                B, H, Tq, Tk, d, float(sm_scale), stream)
+                                B, H, Tq, Tk, d, *k.stride()[:3],
+                                float(sm_scale), stream)
     _cuda.check(err, "flash_attn_bwd_dq")
     _cuda.LAUNCHES["flash_attn_bwd"] += 1
     return dq, dk, dv, ds
@@ -170,7 +181,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, causal, sm_scale):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        q, k, v = _head_contiguous(q, k, v)
         out, stats = _launch_fwd(q, k, v, bias, causal, sm_scale, True)
         ctx.save_for_backward(q, k, v, bias, out, stats)
         ctx.causal, ctx.sm_scale = causal, sm_scale

@@ -6,8 +6,9 @@ on the TPU reaches the Pallas splash-attention kernel with a local mask
 |i - j| <= window and ``valid[b, j]``. On a CUDA tensor the forward
 launches ``banded_attn_fwd`` (csrc/banded_attn.cu) at every T; when a
 gradient is wanted it runs as a ``torch.autograd.Function`` whose backward
-launches ``banded_attn_bwd`` (csrc/banded_attn_bwd.cu: one dk/dv kernel,
-then one dq kernel). On a CPU tensor it runs ``banded_attention_plain``,
+launches ``banded_attn_bwd`` (csrc/banded_attn_bwd.cu: one dk/dv kernel
+that also writes the band's dS into a scratch, then one dq kernel that
+reads it). On a CPU tensor it runs ``banded_attention_plain``,
 the dense masked softmax at O(T^2) memory, whose gradient is torch's own
 autograd.
 
@@ -22,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from espnet_tpu_torch.ops import _cuda
+from espnet_tpu_torch.ops.attention import _head_contiguous
 
 NEG_MASK = -1e9
 
@@ -102,10 +104,13 @@ def _check(q, k, v, valid):
 
 
 def _valid_arg(valid):
-    """The kernels read valid as one byte per frame, or all valid."""
+    """The kernels read valid as one byte per frame, nonzero = valid, or
+    all valid: a bool or uint8 mask as it is, anything else as uint8."""
     if valid is None:
         return None, None
-    valid = valid.to(torch.uint8).contiguous()
+    if valid.dtype not in (torch.bool, torch.uint8):
+        valid = valid.to(torch.uint8)
+    valid = valid.contiguous()
     return valid, valid.data_ptr()
 
 
@@ -142,21 +147,28 @@ def banded_attention_bwd(q, k, v, valid, out, stats, dout, *, window: int,
             raise ValueError(f"banded_attention_bwd: {name} must be float32 "
                              f"{tuple(shape)} on {q.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if not all(t.is_contiguous() for t in (q, k, v, out, stats, dout)):
-        raise ValueError("banded_attention_bwd: q, k, v, out, stats and "
-                         "dout must be contiguous")
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if not all(t.is_contiguous() for t in (out, stats, dout)):
+        raise ValueError("banded_attention_bwd: out, stats and dout must be "
+                         "contiguous")
+    q, k, v = _head_contiguous(q, k, v)
+    dq, dk, dv = (torch.empty(B, H, T, d, dtype=torch.float32,
+                              device=q.device) for _ in range(3))
+    lib = _cuda.lib()
+    # the band's dS, written by the first kernel and read by the second
+    ds = torch.empty(lib.banded_attn_bwd_scratch(B, H, T, int(window)),
+                     dtype=torch.float32, device=q.device)
     valid, valid_ptr = _valid_arg(valid)
     stream = _cuda.stream_ptr(q.device)
-    lib = _cuda.lib()
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_ptr,
-            out.data_ptr(), dout.data_ptr(), stats.data_ptr())
-    err = lib.banded_attn_bwd_dkv(*args, dk.data_ptr(), dv.data_ptr(), B, H,
-                                  T, d, int(window), float(sm_scale), stream)
+    err = lib.banded_attn_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_ptr, out.data_ptr(),
+        dout.data_ptr(), stats.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        ds.data_ptr(), B, H, T, d, int(window), *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], float(sm_scale), stream)
     _cuda.check(err, "banded_attn_bwd_dkv")
     _cuda.LAUNCHES["banded_attn_bwd"] += 1
-    err = lib.banded_attn_bwd_dq(*args, dq.data_ptr(), B, H, T, d,
-                                 int(window), float(sm_scale), stream)
+    err = lib.banded_attn_bwd_dq(ds.data_ptr(), k.data_ptr(), dq.data_ptr(),
+                                 B, H, T, d, int(window), *k.stride()[:3],
+                                 float(sm_scale), stream)
     _cuda.check(err, "banded_attn_bwd_dq")
     _cuda.LAUNCHES["banded_attn_bwd"] += 1
     return dq, dk, dv
@@ -168,6 +180,7 @@ class BandedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, valid, window, sm_scale):
+        # the forward kernel (csrc/banded_attn.cu) reads contiguous rows
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         out, stats = _launch_fwd(q, k, v, valid, window, sm_scale, True)
         ctx.save_for_backward(q, k, v, valid, out, stats)

@@ -12,8 +12,10 @@ inputs (fp32 sums in another order, the attention forward's products as
 its row statistics, 1e-3 in the log domain for log-mel energies, and
 2e-5 of each gradient's own scale for the attention backward, whose sums
 run over at most Tq or Tk terms; the banded attention's the same, its
-sums running over at most 2W + 1 keys). The attention forward and the
-log-mel give the same bits when launched twice on the same input. The RNN-T sweeps take the same fp32 steps as
+sums running over at most 2W + 1 keys). The attention forward and
+backward, the banded backward and the log-mel give the same bits when
+launched twice on the same input, and the attention kernels the same
+bits on q, k, v given as strided views. The RNN-T sweeps take the same fp32 steps as
 their plain versions: nll, alpha, beta and the closed-form gradient
 within 1e-5 of their largest entry.
 """
@@ -171,10 +173,17 @@ def _relative_err(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
 
+def _strided(*ts):
+    """q, k, v as the attention modules hand them over: (B, H, T, d) views
+    of (B, T, H, d) projections."""
+    return [t.transpose(1, 2).contiguous().transpose(1, 2) for t in ts]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,H,Tq,Tk,d,causal,bias_kind", [
     (25, 4, 145, 145, 64, False, "full"),
     (25, 4, 145, 145, 64, False, "padding"),
+    (25, 4, 145, 145, 64, False, "relpos"),
     (2, 3, 7, 70, 40, True, "full"),
     (2, 3, 70, 7, 40, True, "full"),
     (3, 2, 130, 129, 128, False, None),
@@ -190,7 +199,9 @@ def test_flash_attn_backward_kernel_matches_plain(B, H, Tq, Tk, d, causal,
                       0.0, -1e9)[:, None, None, :]
     bias = {"full": lambda: torch.randn(B, H, Tq, Tk, generator=g,
                                         device="cuda") + pad,
-            "padding": lambda: pad.clone(), None: lambda: None}[bias_kind]()
+            "padding": lambda: pad.clone(),
+            "relpos": lambda: _relpos_bias(B, H, Tq, d, g),
+            None: lambda: None}[bias_kind]()
     ins = [t for t in (q, k, v, bias) if t is not None]
     for t in ins:
         t.requires_grad_(True)
@@ -207,6 +218,16 @@ def test_flash_attn_backward_kernel_matches_plain(B, H, Tq, Tk, d, causal,
     for a, b in zip(grads, ref):
         assert a.shape == b.shape
         assert _relative_err(a, b) < 2e-5
+    # the backward's wrapper launched twice, and on strided q, k, v: the
+    # same bits
+    from espnet_tpu_torch.ops.attention import _launch_fwd, fused_attention_bwd
+    with torch.no_grad():
+        out, stats = _launch_fwd(q, k, v, bias, causal, d ** -0.5, True)
+        runs = [fused_attention_bwd(*qkv, bias, out, stats, dout,
+                                    causal=causal, sm_scale=d ** -0.5)
+                for qkv in ((q, k, v), (q, k, v), _strided(q, k, v))]
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(run, runs[0]))
 
 
 @pytest.mark.gpu
@@ -503,6 +524,17 @@ def test_banded_attn_kernels_match_plain(B, H, T, d, W, lens):
         own = float(b.abs().max())
         scale = own if own >= 1e-3 * top else top
         assert float((a - b).abs().max()) <= 2e-5 * scale
+    # the backward's wrapper launched twice, and on strided q, k, v: the
+    # same bits
+    from espnet_tpu_torch.ops.banded_attention import (banded_attention_bwd,
+                                                       banded_stats_plain)
+    with torch.no_grad():
+        stats = banded_stats_plain(q, k, W, valid, **kw)
+        runs = [banded_attention_bwd(*qkv, valid, out, stats, dout, window=W,
+                                     **kw)
+                for qkv in ((q, k, v), (q, k, v), _strided(q, k, v))]
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(run, runs[0]))
 
 
 def _longform_cfg():

@@ -6,8 +6,10 @@ fused_attention, and fused_logmel in interpret mode). The CUDA kernels
 themselves are held against the plain versions by tests/test_torch_gpu.py,
 which needs a card; here are the host-side parts of the kernels: the
 log-mel kernel's tables (window, twiddles, packed mel filterbank), its
-eligibility rule, and the arithmetic of the attention kernel's 3xTF32
-products, emulated in plain torch.
+eligibility rule, and the arithmetic of the attention kernels' 3xTF32
+products, emulated in plain torch: the forward's at the decode shape, and
+the two backward kernels' (fp32 scores, the four other products as
+3xTF32) at the flagship's train shape and at a banded case.
 """
 
 import jax
@@ -24,6 +26,7 @@ from espnet_tpu.ops.stft import _windowed_dft_matrix as jax_dft
 from espnet_tpu.ops.stft import stft as jax_stft
 from espnet_tpu.ops.stft import stft_power as jax_stft_power
 from espnet_tpu.ops.stft import stft_segmented as jax_stft_segmented
+from espnet_tpu_torch.ops import attention, banded_attention
 from espnet_tpu_torch.ops.attention import fused_attention
 from espnet_tpu_torch.frontends.default import DefaultFrontend
 from espnet_tpu_torch.ops.logmel import (fft_tables, fused_logmel,
@@ -231,3 +234,63 @@ def test_3xtf32_products_keep_fp32_accuracy_at_the_decode_shape():
     assert rel(_mm_3xtf32(p, v), o64) < 1e-6
     # one TF32 product alone would not do
     assert rel(_tf32_rna(q) @ _tf32_rna(k).transpose(-1, -2), s64) > 1e-5
+
+
+def _bwd_3xtf32(q, k, v, out, stats, dout, scores, sm_scale, zero=None):
+    """The backward kernels' arithmetic (csrc/attn_bwd.cuh): P from the
+    plain version's fp32 scores and the forward's row statistics, then
+    do v^T, P^T do, dS^T q and dS k as 3xTF32 products; P and dS are 0
+    where ``zero`` is True -> (dq, dk, dv, dS)."""
+    p = torch.exp(scores - stats[..., :1] - stats[..., 1:])
+    D = (dout * out).sum(dim=-1, keepdim=True)
+    ds = p * (_mm_3xtf32(dout, v.transpose(-1, -2)) - D)
+    if zero is not None:
+        p, ds = p.masked_fill(zero, 0.0), ds.masked_fill(zero, 0.0)
+    return (_mm_3xtf32(ds, k) * sm_scale,
+            _mm_3xtf32(ds.transpose(-1, -2), q) * sm_scale,
+            _mm_3xtf32(p.transpose(-1, -2), dout), ds)
+
+
+def _relative(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def test_3xtf32_backward_keeps_the_gradients_within_2e_5():
+    # the card's check of both backward kernels (2e-5 of each gradient's
+    # largest entry against the plain versions) rests on this budget: the
+    # flagship's train shape (25, 4, 145, 64) with a full bias plus padding,
+    # and a banded case with ragged valid frames
+    rng = np.random.RandomState(1)
+    B, H, T, d = 25, 4, 145, 64
+    q, k, v, dout = (torch.from_numpy(rng.randn(B, H, T, d).astype(
+        np.float32)) for _ in range(4))
+    lens = rng.randint(1, T + 1, size=B)
+    pad = np.where(np.arange(T)[None] < lens[:, None], 0.0, -1e9)
+    bias = torch.from_numpy((3.0 * rng.randn(B, H, T, T)
+                             + pad[:, None, None, :]).astype(np.float32))
+    scale = d ** -0.5
+    out = attention.fused_attention_plain(q, k, v, bias, sm_scale=scale)
+    stats = attention.softmax_stats_plain(q, k, bias, sm_scale=scale)
+    plain = attention.fused_attention_bwd_plain(q, k, v, bias, out, stats,
+                                                dout, sm_scale=scale)
+    emulated = _bwd_3xtf32(q, k, v, out, stats, dout,
+                           attention._scores(q, k, bias, False, scale), scale)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), emulated, plain):
+        assert _relative(a, b) < 2e-5, name
+
+    B, H, T, W = 2, 2, 600, 64
+    q, k, v, dout = (torch.from_numpy(rng.randn(B, H, T, d).astype(
+        np.float32)) for _ in range(4))
+    valid = torch.from_numpy(np.arange(T)[None] < np.array([[600], [377]]))
+    out = banded_attention.banded_attention_plain(q, k, v, W, valid,
+                                                  sm_scale=scale)
+    stats = banded_attention.banded_stats_plain(q, k, W, valid,
+                                                sm_scale=scale)
+    plain = banded_attention.banded_attention_bwd_plain(
+        q, k, v, valid, out, stats, dout, window=W, sm_scale=scale)
+    scores, allowed = banded_attention._scores(q, k, W, valid, scale)
+    emulated = _bwd_3xtf32(q, k, v, out, stats, dout,
+                           scores.masked_fill(~allowed, 0.0), scale,
+                           zero=~allowed)
+    for name, a, b in zip(("dq", "dk", "dv"), emulated, plain):
+        assert _relative(a, b) < 2e-5, name

@@ -3,6 +3,7 @@ port's own rules: no JAX or PyYAML imports, the card unless the CPU is
 asked for."""
 
 import ast
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -18,6 +19,7 @@ from espnet_tpu.utils.native import score_corpus as jax_score_corpus
 from espnet_tpu_torch import convert
 from espnet_tpu_torch.bin.asr_inference import Speech2Text
 from espnet_tpu_torch.data.synth_speech import SynthSpeechCorpus
+from espnet_tpu_torch.ops import _cuda
 from espnet_tpu_torch.tasks.asr import build_model_from_file, read_token_list
 from espnet_tpu_torch.text.tokenizer import CharTokenizer, TokenIDConverter
 from espnet_tpu_torch.utils.config import load_yaml, loads_yaml
@@ -180,3 +182,22 @@ def test_converter_rejects_missing_and_unused_keys():
     with pytest.raises(KeyError):
         convert.load_flax_params(model, {"params/w_1/kernel":
                                          flat["params/w_1/kernel"]})
+
+
+def test_kernel_build_digest_covers_every_file_under_csrc(tmp_path,
+                                                        monkeypatch):
+    # a header that the sources include (attn_common.cuh, attn_bwd.cuh)
+    # must trigger a rebuild when it changes, as a source does
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_cuda.CSRC, csrc)
+    monkeypatch.setattr(_cuda, "CSRC", csrc)
+    headers = sorted(csrc.glob("*.cuh"))
+    assert {h.name for h in headers} >= {"attn_common.cuh", "attn_bwd.cuh"}
+    digests = [_cuda._source_hash()]
+    for path in (headers[0], csrc / _cuda.SOURCES[0]):
+        path.write_text(path.read_text() + "\n// changed\n")
+        digests.append(_cuda._source_hash())
+    (csrc / "new_helper.cuh").write_text("#pragma once\n")
+    digests.append(_cuda._source_hash())
+    assert len(set(digests)) == len(digests)
+    assert _cuda._source_hash() == digests[-1]
