@@ -23,20 +23,26 @@ Phases, each printing one JSON line:
    the decode batch (launched twice: the same bits) and on the first
    long-form train batch, the
    RNN-T lattice sweeps with their closed-form gradient on the
-   transducer's real joint logits of its first train batch and on a small
-   ragged case, and the banded attention forward and backward on the
-   first Longformer block's q, k, v and valid frames of the long-form
-   decode batch and of the first long-form train batch (the backward
-   launched twice: the same bits), and on small ragged cases (T not a
+   transducer's real joint logits of its first train batch and on small
+   cases (U+1 = 1, a ragged case, U+1 = 300: the path of a block of
+   warps), equal to the plain sweeps to the bit and launched twice for
+   the same bits, with their chain floor (tools/rnnt_chain.py: the
+   longest sample's diagonals times one diagonal's dependent step, read
+   on the card), and the banded attention forward and backward on the
+   first Longformer block's q, k, v (the forward on the encoder's strided
+   views) and valid frames of the long-form decode batch and of the first
+   long-form train batch (each launched twice: the same bits, the
+   forward's row statistics too), and on small ragged cases (T not a
    multiple of 64, W >= T, W = 0, a padded tail longer than W); each
    kernel is timed beside the plain version and, where one exists, one
-   PyTorch library call (a yardstick only), the attention forward also at
-   the train shape and the log-mel also on the long-form train batch,
-   and torch.profiler names the device kernels, with their device times,
-   behind the attention forward, the log-mel and their library calls at
-   the decode shapes, and behind both attention backwards and SDPA's
-   autograd backward at their train shapes (the wrappers' host time,
-   ~25-35 us a call, is in the CUDA-event times);
+   PyTorch library call (a yardstick only), the attention forwards also
+   at their train shapes and the log-mel also on the long-form train
+   batch, and torch.profiler names the device kernels, with their device
+   times, behind the attention forwards, the log-mel, the RNN-T sweeps
+   and their library calls at the decode shapes (the sweeps at the train
+   batch's), and behind both attention backwards and SDPA's autograd
+   backward at their train shapes (the wrappers' host time, ~25-35 us a
+   call, is in the CUDA-event times);
 5. main_path: the flagship hybrid CTC/attention Conformer
    (assets/synth_asr_flagship) built by Speech2Text on the card decodes the
    first 64 held-out SynthSpeechCorpus utterances in fp32 (beam 10, CTC
@@ -531,7 +537,7 @@ def banded_checks(torch, lmodel, dspeech, dlens, tbatch) -> dict:
     import torch.nn.functional as F
 
     from espnet_tpu_torch.ops.banded_attention import (
-        banded_allowed, banded_attention, banded_attention_bwd,
+        _launch_fwd, banded_allowed, banded_attention, banded_attention_bwd,
         banded_attention_bwd_plain, banded_attention_plain,
         banded_stats_plain)
     captured = {}
@@ -545,7 +551,9 @@ def banded_checks(torch, lmodel, dspeech, dlens, tbatch) -> dict:
         band, lvalid = dargs[4], dargs[5]
         lmodel.encode(tbatch["speech"], tbatch["speech_lengths"])
         targs = captured["args"]
-        bq, bk, bv = (t.contiguous() for t in lattn.qkv(*targs[:3]))
+        # as the encoder hands them over: views of its projections
+        tviews = lattn.qkv(*targs[:3])
+        bq, bk, bv = (t.contiguous() for t in tviews)
         bvalid = targs[5]
     hook.remove()
     lscale = lattn.dk ** -0.5
@@ -611,6 +619,37 @@ def banded_checks(torch, lmodel, dspeech, dlens, tbatch) -> dict:
         return banded_attention_bwd(bq, bk, bv, bvalid, bout, bstats, bdout,
                                     window=band, sm_scale=lscale)
 
+    def k4():
+        return banded_attention(lq, lk, lv, band, lvalid, sm_scale=lscale)
+
+    def k4_library():
+        return F.scaled_dot_product_attention(lq, lk, lv, attn_mask=dmask,
+                                              scale=lscale)
+
+    with torch.no_grad():
+        # two launches at the decode shape: the same bits, stats too (on
+        # contiguous rows, as the wrapper hands them to the kernel)
+        cq, ck, cv = lq.contiguous(), lk.contiguous(), lv.contiguous()
+        k4_runs = [_launch_fwd(cq, ck, cv, lvalid, band, lscale, True)
+                   for _ in range(2)]
+        k4_same = all(torch.equal(a, b) for a, b in zip(*k4_runs))
+        del k4_runs, cq, ck, cv
+        k4_train = {
+            "shape": [Bb, Hb, Tb, db],
+            "valid_frames": bvalid.sum(1).tolist(),
+            "ms": time_ms(torch, lambda: banded_attention(
+                *tviews, band, bvalid, sm_scale=lscale)),
+            "plain_ms": time_ms(torch, lambda: banded_attention_plain(
+                *tviews, band, bvalid, sm_scale=lscale)),
+            "library_ms": time_ms(torch, lambda: (
+                F.scaled_dot_product_attention(*tviews, attn_mask=bmask,
+                                               scale=lscale))),
+            "flops": 4.0 * db * b_pairs,
+            "bytes": 4.0 * 4 * Bb * Hb * Tb * db + Bb * Tb}
+        bound(k4_train, tensor_cores=True)
+        k4_profiled = device_times(torch, {"kernel": k4,
+                                           "library": k4_library})
+
     def k4b_library():
         return torch.autograd.grad(blib_out, blib_ins, bdout,
                                    retain_graph=True)
@@ -624,6 +663,7 @@ def banded_checks(torch, lmodel, dspeech, dlens, tbatch) -> dict:
     profiled = device_times(torch, {"kernel": k4b} | (
         {"library": k4b_library} if k4b_library_ms is not None else {}))
     return {
+        "k4_same": k4_same,
         "k4b_same": k4b_same,
         "k4_err": max(k4_errs.values()),
         "k4b_err": max(e["rel_err"] for case in k4b_errs.values()
@@ -632,7 +672,7 @@ def banded_checks(torch, lmodel, dspeech, dlens, tbatch) -> dict:
             {"name": "banded_attn_fwd", "shape": [Bl, Hl, Tl, dl],
              "window": band, "valid_frames": lvalid.sum(1).tolist(),
              "tol": K4_TOL, "tol_of": "max abs err, every row",
-             "cases": k4_errs},
+             "same_bits_twice": k4_same, "cases": k4_errs},
             {"name": "banded_attn_bwd", "shape": [Bb, Hb, Tb, db],
              "window": band, "valid_frames": bvalid.sum(1).tolist(),
              "tol": K4B_TOL, "same_bits_twice": k4b_same,
@@ -650,15 +690,13 @@ def banded_checks(torch, lmodel, dspeech, dlens, tbatch) -> dict:
                           "(banded_attention -> _splash_banded_kernel :71, "
                           "splash _splash_attention_forward)"),
              "max_abs_err": k4_errs["decode"],
-             "ms": time_ms(torch, lambda: banded_attention(
-                 lq, lk, lv, band, lvalid, sm_scale=lscale)),
+             "ms": time_ms(torch, k4),
              "plain_ms": time_ms(torch, lambda: banded_attention_plain(
                  lq, lk, lv, band, lvalid, sm_scale=lscale)),
-             "library_ms": time_ms(torch, lambda: (
-                 F.scaled_dot_product_attention(lq, lk, lv, attn_mask=dmask,
-                                                scale=lscale))),
+             "library_ms": time_ms(torch, k4_library),
              "library_note": ("scaled_dot_product_attention with the band "
                               "and the valid keys as a float mask"),
+             "at_train_shape": k4_train, "device_kernels": k4_profiled,
              "flops": 4.0 * dl * d_pairs,
              "bytes": 4.0 * 4 * Bl * Hl * Tl * dl + Bl * Tl},
             {"name": "banded_attn_bwd", "route": "cuda",
@@ -727,6 +765,7 @@ def run(torch, workdir: Path):
     from espnet_tpu_torch.tasks.asr import (ASRTask, build_model,
                                             build_model_from_file)
     from espnet_tpu_torch.tasks.asr_transducer import ASRTransducerTask
+    from espnet_tpu_torch.tools import rnnt_chain
     from espnet_tpu_torch.train.checkpoint import load_checkpoint
     from espnet_tpu_torch.train.trainer import evaluate
     from espnet_tpu_torch.utils.scoring import score_corpus
@@ -1003,20 +1042,49 @@ def run(torch, workdir: Path):
                                       ttrain_batch["speech_lengths"])
         text, text_lens = ttrain_batch["text"], ttrain_batch["text_lengths"]
         tlogits = tmodel.lattice_logits(enc, text)
-        k3_lat, k3_errs = {}, {}
-        k3_lat["train"], k3_errs["train"] = k3_case(tlogits, text, enc_lens,
-                                                    text_lens)
+        k3_errs = {}
+        k3_lat, k3_errs["train"] = k3_case(tlogits, text, enc_lens,
+                                           text_lens)
         g3 = torch.Generator(device="cuda").manual_seed(3)
-        k3_lat["ragged"], k3_errs["ragged"] = k3_case(
-            torch.randn(3, 7, 5, 6, generator=g3, device="cuda"),
-            torch.randint(1, 6, (3, 4), generator=g3, device="cuda"),
-            torch.tensor([7, 1, 4], device="cuda"),
-            torch.tensor([0, 4, 2], device="cuda"))
+        # U+1 = 1 (a cell a row), a small ragged case, and U+1 = 300, past
+        # one warp's 256 cells: the path of a block of warps
+        for name, (B_, T_, U1_, tl_, ul_) in {
+                "u1_1": (3, 6, 1, [6, 0, 2], [0, 0, 0]),
+                "ragged": (3, 7, 5, [7, 1, 4], [0, 4, 2]),
+                "u1_300": (2, 9, 300, [9, 5], [299, 120])}.items():
+            _, k3_errs[name] = k3_case(
+                torch.randn(B_, T_, U1_, 6, generator=g3, device="cuda"),
+                torch.randint(1, 6, (B_, U1_ - 1), generator=g3,
+                              device="cuda"),
+                torch.tensor(tl_, device="cuda"),
+                torch.tensor(ul_, device="cuda"))
     k3_err = max(e["rel_err"] for case in k3_errs.values()
                  for e in case.values())
+    # the sweeps take each cell's two terms in the plain sweeps' order:
+    # nll, alpha, beta and so dlogits equal theirs to the bit
+    k3_exact = all(e["max_abs_err"] == 0 for case in k3_errs.values()
+                   for e in case.values())
     Bk, Tk3, U1k, Vk = tlogits.shape
 
-    k3_args = (*k3_lat["train"], enc_lens, text_lens)
+    k3_args = (*k3_lat, enc_lens, text_lens)
+    with torch.no_grad():
+        k3_runs = [(*rnnt.rnnt_alpha(*k3_args), rnnt.rnnt_beta(*k3_args))
+                   for _ in range(2)]
+    k3_same = all(torch.equal(a, b) for a, b in zip(*k3_runs))
+    del k3_runs
+    # the chain floor: the longest sample's diagonals times the latency of
+    # one diagonal's dependent step (a shuffle and one cell's log-add; a
+    # lane's other cells are independent of it), read on this card by the
+    # probe of tools/rnnt_chain.py, at the SM clock nvidia-smi reports as
+    # the card's most
+    k3_chain = rnnt_chain.measure()
+    k3_diagonals = int((enc_lens.clamp(max=Tk3)
+                        + text_lens.clamp(max=U1k - 1)).max())
+    for sweep in ("alpha", "beta"):
+        k3_chain[f"{sweep}_floor_ms"] = (
+            k3_diagonals * k3_chain[f"{sweep}_cycles_per_diagonal"]
+            / (k3_chain["clocks_max_sm_mhz"] * 1e3))
+    k3_chain["diagonals"] = k3_diagonals
     # the cells inside each sample's lattice: the sweeps' data-dependent
     # work, ~9 operations each (two adds and a log-add)
     k3_cells = float(((enc_lens.clamp(max=Tk3))
@@ -1072,7 +1140,9 @@ def run(torch, workdir: Path):
         # kernels SDPA and torch.stft run, and each one's device time
         profiled = device_times(torch, {
             "flash_attn_fwd": k1, "sdpa": k1_library,
-            "logmel_fwd": k2, "stft_mel": k2_library})
+            "logmel_fwd": k2, "stft_mel": k2_library,
+            "rnnt_alpha": lambda: rnnt.rnnt_alpha(*k3_args),
+            "rnnt_beta": lambda: rnnt.rnnt_beta(*k3_args)})
     # and behind the attention backward and SDPA's at the train shape
     profiled |= device_times(torch, {"flash_attn_bwd": k1b} | (
         {"sdpa_bwd": k1b_library} if k1b_library_ms is not None else {}))
@@ -1091,6 +1161,8 @@ def run(torch, workdir: Path):
                        "max_abs_err": k2_long_err}},
         {"name": "rnnt_alpha+rnnt_beta", "shape": [Bk, Tk3, U1k, Vk],
          "tol": K3_TOL, "tol_of": "max abs err / max |plain|",
+         "bit_exact": k3_exact, "same_bits_twice": k3_same,
+         "chain": k3_chain,
          "T_b": enc_lens.tolist(), "U_b": text_lens.tolist(),
          "cases": k3_errs},
         *banded["checks"],
@@ -1146,6 +1218,8 @@ def run(torch, workdir: Path):
                             for key in ("alpha", "nll")),
          "ms": time_ms(torch, lambda: rnnt.rnnt_alpha(*k3_args)),
          "plain_ms": time_ms(torch, lambda: rnnt.rnnt_alpha_plain(*k3_args)),
+         "chain_floor_ms": k3_chain["alpha_floor_ms"],
+         "device_kernels": {"kernel": profiled["rnnt_alpha"]},
          "library_ms": None,
          "library_note": ("no PyTorch call computes the RNN-T loss "
                           "(torchaudio's rnnt_loss is not installed here)"),
@@ -1158,6 +1232,8 @@ def run(torch, workdir: Path):
          "max_abs_err": k3_errs["train"]["beta"]["max_abs_err"],
          "ms": time_ms(torch, lambda: rnnt.rnnt_beta(*k3_args)),
          "plain_ms": time_ms(torch, lambda: rnnt.rnnt_beta_plain(*k3_args)),
+         "chain_floor_ms": k3_chain["beta_floor_ms"],
+         "device_kernels": {"kernel": profiled["rnnt_beta"]},
          "library_ms": None,
          "library_note": ("no PyTorch call computes the RNN-T loss "
                           "(torchaudio's rnnt_loss is not installed here)"),
@@ -1170,10 +1246,12 @@ def run(torch, workdir: Path):
     emit({"phase": "kernel_checks", "checks": checks})
     if not k1_err <= K1_TOL:
         raise AssertionError(f"flash_attn_fwd disagrees: {k1_err}")
-    if not (k1_same and k2_same and k1b_same and banded["k4b_same"]):
+    if not (k1_same and k2_same and k1b_same and banded["k4_same"]
+            and banded["k4b_same"]):
         raise AssertionError("a second launch on the same input gave other "
                              f"bits: flash_attn_fwd {k1_same}, logmel_fwd "
                              f"{k2_same}, flash_attn_bwd {k1b_same}, "
+                             f"banded_attn_fwd {banded['k4_same']}, "
                              f"banded_attn_bwd {banded['k4b_same']}")
     if not k2_long_err <= K2_TOL:
         raise AssertionError(f"logmel_fwd disagrees on the long-form "
@@ -1182,8 +1260,11 @@ def run(torch, workdir: Path):
         raise AssertionError(f"flash_attn_bwd disagrees: {k1b_errs}")
     if not k2_err <= K2_TOL:
         raise AssertionError(f"logmel_fwd disagrees: {k2_err}")
-    if not k3_err <= K3_TOL:
+    if not (k3_err <= K3_TOL and k3_exact):
         raise AssertionError(f"rnnt sweeps disagree: {k3_errs}")
+    if not k3_same:
+        raise AssertionError("rnnt sweeps: a second launch on the same "
+                             "input gave other bits")
     if not banded["k4_err"] <= K4_TOL:
         raise AssertionError(f"banded_attn_fwd disagrees: "
                              f"{banded['checks'][0]}")
@@ -1548,7 +1629,7 @@ def run(torch, workdir: Path):
             "name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")}
         | {key: kern[key] for key in (
-            "bound_ms_fp32_cores", "at_train_shape",
+            "bound_ms_fp32_cores", "chain_floor_ms", "at_train_shape",
             "at_long_form_train_batch", "device_kernels") if key in kern}
         | {"launches": main_runs[kern["name"]][kern["name"]]}
         | {f"launches_per_{kind_}": {

@@ -1,6 +1,7 @@
 // Device helpers shared by the attention kernels (flash_attn.cu,
-// flash_attn_bwd.cu, banded_attn_bwd.cu): asynchronous copies into shared
-// memory, and fp32-accurate products on the tensor cores as 3xTF32.
+// flash_attn_bwd.cu, banded_attn_bwd.cu) and the RNN-T sweeps (rnnt.cu):
+// asynchronous copies into shared memory, and fp32-accurate products on
+// the tensor cores as 3xTF32.
 
 #pragma once
 
@@ -41,6 +42,12 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// until at most N of this thread's groups of copies are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // x = hi + lo + O(2^-22 x), both parts TF32 rounded to nearest, ties away

@@ -28,8 +28,9 @@ import torch.nn.functional as F
 from espnet_tpu_torch.ops import _cuda
 
 NEG_INF = -1e30
-# the kernels keep two diagonals of U+1 floats in a block's shared memory
-MAX_U1 = 232448 // 8
+# the kernels keep a diagonal in registers: at most 32 cells a lane, in a
+# block of at most 32 warps of 32 lanes
+MAX_U1 = 32 * 32 * 32
 
 
 def _reduce(nll, reduction: str):
@@ -181,9 +182,11 @@ def _check_sweep_args(name, blank, emit, tlen, ulen):
     B, T, U1 = blank.shape
     if tlen.shape != (B,) or ulen.shape != (B,):
         raise ValueError(f"{name}: need (B,) lengths")
-    if not 1 <= U1 <= MAX_U1 or T < 1:
-        raise ValueError(f"{name}: the kernel takes T >= 1 and 1 <= U+1 "
-                         f"<= {MAX_U1}, got T={T}, U+1={U1}")
+    # the lattice indices the kernel forms stay below (T + 2 (U+1)) (U+1)
+    if not 1 <= U1 <= MAX_U1 or T < 1 or (T + 2 * U1) * U1 >= 2 ** 31:
+        raise ValueError(f"{name}: the kernel takes T >= 1, 1 <= U+1 "
+                         f"<= {MAX_U1} and (T + 2 (U+1)) (U+1) < 2^31, got "
+                         f"T={T}, U+1={U1}")
     for x in (emit, tlen, ulen):
         if x.device != blank.device:
             raise ValueError(f"{name}: all inputs on one device")

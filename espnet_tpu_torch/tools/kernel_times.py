@@ -1,16 +1,26 @@
-"""Device times of the attention backward kernels at the paths' shapes.
+"""Times of the port's kernels at the paths' shapes, for any checkout.
 
-Times ``fused_attention_bwd`` (K1b) at the flagship's train shape (25, 4,
-145, 64) with an f32 bias plus padding, ``banded_attention_bwd`` (K4b) at
-the long-form train shape (4, 4, 2189, 64), W = 64, 2148-2189 valid
-frames, and SDPA's autograd backward on the same inputs, from seeded
-random data: the mean of 20 calls by CUDA events around the wrapper, and
-torch.profiler's device time of each kernel over 10 calls. ``--root``
-times the kernels of another checkout of the repository (for a parent
-commit beside this one, in one process each). One card; prints one JSON
-line, with the card's name and power limit:
+From seeded random data, at the shapes of the paths that run them:
 
-    python3 espnet_tpu_torch/tools/attn_bwd_times.py [--root DIR]
+- ``banded_attn_fwd`` (K4) at the long-form decode shape (4, 4, 3339, 64)
+  with 2168-2228 valid frames and at the train shape (4, 4, 2189, 64) with
+  2148-2189, W = 64, on q, k, v given as the encoder gives them: views of
+  (B, T, H * d) projections;
+- ``rnnt_alpha`` and ``rnnt_beta`` (K3) on (25, 145, 65) lattices, with
+  every sample's lattice full (T_b + U_b = 209 diagonals) and with ragged
+  lengths;
+- ``fused_attention_bwd`` (K1b) at the flagship's train shape (25, 4, 145,
+  64) with an f32 bias plus padding, and ``banded_attention_bwd`` (K4b) at
+  the long-form train shape, each beside SDPA's autograd backward on the
+  same inputs.
+
+For each: the mean of 20 calls by CUDA events around the wrapper (its host
+time included), and torch.profiler's device time of each kernel over 10
+calls. ``--root`` times the kernels of another checkout of the repository
+(a parent commit beside this one, in one process each). One card; prints
+one JSON line, with the card's name and power limit:
+
+    python3 espnet_tpu_torch/tools/kernel_times.py [--root DIR]
 """
 
 from __future__ import annotations
@@ -48,6 +58,18 @@ def event_ms(torch, fn, n: int = 20) -> float:
     return start.elapsed_time(end) / n
 
 
+def timed(torch, kernel, library=None) -> dict:
+    dev = device_times(torch, kernel)
+    out = {"ms": event_ms(torch, kernel),
+           "device_ms": sum(e["ms"] for e in dev), "device_kernels": dev}
+    if library is not None:
+        lib = device_times(torch, library)
+        out |= {"library_ms": event_ms(torch, library),
+                "library_device_ms": sum(e["ms"] for e in lib),
+                "library_device_kernels": lib}
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--root", type=Path,
@@ -57,17 +79,45 @@ def main(argv=None):
     import torch
     import torch.nn.functional as F
 
-    from espnet_tpu_torch.ops import attention, banded_attention
+    from espnet_tpu_torch.ops import attention, banded_attention, rnnt
     if not torch.cuda.is_available():
-        sys.exit("attn_bwd_times: no card")
+        sys.exit("kernel_times: no card")
     g = torch.Generator(device="cuda").manual_seed(0)
     out = {"root": str(args.root), "nvidia_smi": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip().splitlines()[0]}
 
-    B, H, T, d = 25, 4, 145, 64
+    H, d, W = 4, 64, 64
     scale = d ** -0.5
+    for name, T, lens in (("decode", 3339, [2228, 2200, 2168, 2190]),
+                          ("train", 2189, [2189, 2180, 2160, 2148])):
+        # (B, H, T, d) views of (B, T, H, d) projections
+        q, k, v = (torch.randn(4, T, H, d, generator=g, device="cuda")
+                   .transpose(1, 2) for _ in range(3))
+        valid = (torch.arange(T, device="cuda")[None]
+                 < torch.tensor(lens, device="cuda")[:, None])
+        with torch.no_grad():
+            out[f"banded_attn_fwd_{name}"] = timed(
+                torch, lambda: banded_attention.banded_attention(
+                    q, k, v, W, valid, sm_scale=scale))
+
+    B, T, U1, V = 25, 145, 65, 25
+    logits = torch.randn(B, T, U1, V, generator=g, device="cuda")
+    labels = torch.randint(1, V, (B, U1 - 1), generator=g, device="cuda")
+    for name, tl, ul in (
+            ("full", torch.full((B,), T, device="cuda"),
+             torch.full((B,), U1 - 1, device="cuda")),
+            ("ragged", torch.randint(20, 42, (B,), generator=g,
+                                     device="cuda"),
+             torch.randint(5, 18, (B,), generator=g, device="cuda"))):
+        lat = rnnt.lattices(logits, labels, tl, ul)
+        out[f"rnnt_{name}"] = {"diagonals": int((tl + ul).max())} | {
+            sweep: timed(torch, lambda f=getattr(rnnt, sweep): f(*lat, tl,
+                                                                  ul))
+            for sweep in ("rnnt_alpha", "rnnt_beta")}
+
+    B, T = 25, 145
     q, k, v, dout = (torch.randn(B, H, T, d, generator=g, device="cuda")
                      for _ in range(4))
     lens = torch.randint(1, T + 1, (B,), generator=g, device="cuda")
@@ -80,12 +130,13 @@ def main(argv=None):
     ins = [t.clone().requires_grad_() for t in (q, k, v, bias)]
     lib_out = F.scaled_dot_product_attention(*ins[:3], attn_mask=ins[3],
                                              scale=scale)
-    cases = {"flash_attn_bwd": (
+    out["flash_attn_bwd"] = timed(
+        torch,
         lambda: attention.fused_attention_bwd(q, k, v, bias, o, stats, dout,
                                               sm_scale=scale),
-        lambda: torch.autograd.grad(lib_out, ins, dout, retain_graph=True))}
+        lambda: torch.autograd.grad(lib_out, ins, dout, retain_graph=True))
 
-    Bb, Tb, W = 4, 2189, 64
+    Bb, Tb = 4, 2189
     bq, bk, bv, bdout = (torch.randn(Bb, H, Tb, d, generator=g,
                                      device="cuda") for _ in range(4))
     valid = (torch.arange(Tb, device="cuda")[None]
@@ -101,20 +152,12 @@ def main(argv=None):
     bins = [t.clone().requires_grad_() for t in (bq, bk, bv)]
     blib_out = F.scaled_dot_product_attention(*bins, attn_mask=mask,
                                               scale=scale)
-    cases["banded_attn_bwd"] = (
+    out["banded_attn_bwd"] = timed(
+        torch,
         lambda: banded_attention.banded_attention_bwd(
             bq, bk, bv, valid, bo, bstats, bdout, window=W, sm_scale=scale),
         lambda: torch.autograd.grad(blib_out, bins, bdout,
                                     retain_graph=True))
-    for name, (kernel, library) in cases.items():
-        dev = device_times(torch, kernel)
-        lib = device_times(torch, library)
-        out[name] = {"ms": event_ms(torch, kernel),
-                     "device_ms": sum(e["ms"] for e in dev),
-                     "device_kernels": dev,
-                     "library_ms": event_ms(torch, library),
-                     "library_device_ms": sum(e["ms"] for e in lib),
-                     "library_device_kernels": lib}
     print(json.dumps(out), flush=True)
 
 

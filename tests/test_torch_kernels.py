@@ -7,9 +7,10 @@ themselves are held against the plain versions by tests/test_torch_gpu.py,
 which needs a card; here are the host-side parts of the kernels: the
 log-mel kernel's tables (window, twiddles, packed mel filterbank), its
 eligibility rule, and the arithmetic of the attention kernels' 3xTF32
-products, emulated in plain torch: the forward's at the decode shape, and
-the two backward kernels' (fp32 scores, the four other products as
-3xTF32) at the flagship's train shape and at a banded case.
+products, emulated in plain torch: the forward's at the decode shape, the
+two backward kernels' (fp32 scores, the four other products as 3xTF32) at
+the flagship's train shape and at a banded case; and the banded op on
+the encoder's strided q, k, v views.
 """
 
 import jax
@@ -294,3 +295,22 @@ def test_3xtf32_backward_keeps_the_gradients_within_2e_5():
                            zero=~allowed)
     for name, a, b in zip(("dq", "dk", "dv"), emulated, plain):
         assert _relative(a, b) < 2e-5, name
+
+
+def test_banded_attention_takes_the_encoders_strided_views():
+    # the Longformer encoder hands q, k, v over as (B, H, T, d) views of
+    # its (B, T, H * d) projections; the op takes them as they are
+    from espnet_tpu_torch.nn.attention import MultiHeadedAttention
+    torch.manual_seed(0)
+    attn = MultiHeadedAttention(4, 64).eval()
+    x = torch.randn(2, 90, 64)
+    valid = torch.arange(90)[None] < torch.tensor([[90], [41]])
+    with torch.no_grad():
+        q, k, v = attn.qkv(x, x, x)
+        assert not q.is_contiguous() and q.stride(-1) == 1
+        views = banded_attention.banded_attention(q, k, v, 8, valid,
+                                                  sm_scale=0.25)
+        copies = banded_attention.banded_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), 8, valid,
+            sm_scale=0.25)
+    torch.testing.assert_close(views, copies, atol=1e-6, rtol=0)
