@@ -32,7 +32,8 @@ Phases, each printing one JSON line:
    first Longformer block's q, k, v (the forward on the encoder's strided
    views) and valid frames of the long-form decode batch and of the first
    long-form train batch (each launched twice: the same bits, the
-   forward's row statistics too), and on small ragged cases (T not a
+   forward's row statistics too, and the forward once more on copies of
+   its views: the same bits), and on small ragged cases (T not a
    multiple of 64, W >= T, W = 0, a padded tail longer than W); each
    kernel is timed beside the plain version and, where one exists, one
    PyTorch library call (a yardstick only), the attention forwards also
@@ -59,7 +60,9 @@ Phases, each printing one JSON line:
    validation loss;
 7. grad_check: one fixed batch through the flagship in eval mode, on the
    card (kernels) and on the CPU (plain versions): the loss and every
-   parameter's gradient must agree;
+   parameter's gradient must agree; beside the check, a float64 backward
+   on the CPU gives each fp32 leg's distance from float64 per parameter
+   (the worst ten of each, and its seconds);
 8. transducer_decode: the Conformer transducer
    (assets/synth_asr_transducer) built by Speech2TextTransducer on the
    card decodes the same 64 utterances (beam 5), as main_path does;
@@ -395,22 +398,6 @@ def check_steps(steps, per_step, want, loss_keys, n_steps=TRAIN_STEPS):
             raise AssertionError(f"launches per step {n}, not {want}")
 
 
-def relu_inputs(model) -> dict:
-    """The modules whose outputs go into a ReLU: the subsampling's two
-    convolutions and the first linear of each ReLU feed-forward."""
-    import torch.nn.functional as F
-
-    from espnet_tpu_torch.nn.subsampling import Conv2dSubsampling
-    from espnet_tpu_torch.nn.transformer import PositionwiseFeedForward
-    out = {}
-    for name, m in model.named_modules():
-        if isinstance(m, Conv2dSubsampling):
-            out.update({f"{name}.conv0": m.conv0, f"{name}.conv1": m.conv1})
-        elif isinstance(m, PositionwiseFeedForward) and m.act is F.relu:
-            out[f"{name}.w_1"] = m.w_1
-    return out
-
-
 def grad_check(torch, config: Path, model_file: Path, build, batch) -> dict:
     """One backward of the model of (config, model_file) in eval mode on
     ``batch``, on the card and on the CPU: the loss and each parameter's
@@ -421,33 +408,31 @@ def grad_check(torch, config: Path, model_file: Path, build, batch) -> dict:
     side of it a pre-activation within ~1e-7 of 0 falls: the two devices
     may then differ by a whole unit's term in the gradient of the weights
     before it, though both are right. So the CPU's backward takes the
-    card's side at every ReLU (its pre-activations where the signs differ
-    are moved onto the card's side, by less than their rounding, with an
-    identity gradient); how many units moved, and the worst ratio
-    without the move, are reported beside the check."""
+    card's side at every ReLU (tools/grad_pin.py: its pre-activations
+    where the signs differ are moved onto the card's side, with an
+    identity gradient); how many units moved in each module and by how
+    much, and the worst ratio without the move, are reported beside the
+    check, and a move above grad_pin.MOVE_TOL of its module's largest
+    |pre-activation| (more than rounding) fails it.
+
+    Beside the check, a float64 backward of the same model on the CPU
+    (the plain versions, the card's ReLU sides) is the reference of both
+    fp32 legs: each parameter's distance from it on the same scale, for
+    the card and for the CPU, the worst ten of each."""
     from espnet_tpu_torch import convert
     from espnet_tpu_torch.tasks.asr import build_model_from_file
+    from espnet_tpu_torch.tools import grad_pin
     from espnet_tpu_torch.train.trainer import to_device
-    signs, moved = {}, {}
-
-    def pin(name, dev):
-        def hook(module, args, out):
-            if dev == "cuda":
-                signs[name] = out > 0
-                return None
-            want = signs[name].to(out.device)
-            moved[name] = int((want != (out > 0)).sum())
-            side = torch.where(want, out.clamp(min=torch.finfo(out.dtype)
-                                               .tiny), out.clamp(max=0.0))
-            return out + (side - out).detach()
-        return hook
-
-    losses, grads = {}, {}
-    for dev in ("cuda", "cpu_free", "cpu"):
+    signs, moved = {}, {"cpu": {}, "cpu_float64": {}}
+    losses, grads, seconds = {}, {}, {}
+    for dev in ("cuda", "cpu_free", "cpu", "cpu_float64"):
+        t0 = time.perf_counter()
         m, _ = build_model_from_file(config, model_file, dev.split("_")[0],
                                      build=build)
-        hooks = ([mod.register_forward_hook(pin(name, dev))
-                  for name, mod in relu_inputs(m).items()]
+        if dev == "cpu_float64":
+            grad_pin.to_float64(m)
+        hooks = (grad_pin.pin_relus(grad_pin.relu_inputs(m), signs,
+                                    moved.get(dev))
                  if dev != "cpu_free" else [])
         loss, _, _ = m(**to_device(batch, dev.split("_")[0]))
         loss.backward()
@@ -455,25 +440,57 @@ def grad_check(torch, config: Path, model_file: Path, build, batch) -> dict:
             h.remove()
         losses[dev] = loss.item()
         grads[dev] = convert.state_dict_to_flax(m, grad=True)
+        seconds[dev] = time.perf_counter() - t0
+        del m, loss
     top = max(float(abs(g).max()) for g in grads["cpu"].values())
+    top64 = max(float(abs(g).max()) for g in grads["cpu_float64"].values())
 
-    def ratios(ref):
-        return {n: float(abs(grads["cuda"][n] - g).max())
-                / max(float(abs(g).max()), 1e-4 * top)
+    def ratios(dev, ref, top_):
+        return {n: float(abs(grads[dev][n] - g).max())
+                / max(float(abs(g).max()), 1e-4 * top_)
                 for n, g in grads[ref].items()}
 
-    pinned, free = ratios("cpu"), ratios("cpu_free")
+    pinned, free = ratios("cuda", "cpu", top), ratios("cuda", "cpu_free",
+                                                       top)
+    card64 = ratios("cuda", "cpu_float64", top64)
+    cpu64 = ratios("cpu", "cpu_float64", top64)
     worst = max(pinned, key=pinned.get)
     worst_free = max(free, key=free.get)
+
+    def worst_ten(mine, other):
+        return [[n, mine[n], other[n]]
+                for n in sorted(mine, key=mine.get, reverse=True)[:10]]
+
     out = {"batch": len(batch["speech"]), "loss_card": losses["cuda"],
            "loss_cpu": losses["cpu"], "max_grad_ratio": pinned[worst],
            "worst_param": worst, "n_params": len(pinned), "tol": GRAD_TOL,
-           "relu_units_moved": {k: v for k, v in moved.items() if v},
+           "relu_moved": {"cpu": moved["cpu"],
+                          "float64": moved["cpu_float64"],
+                          "rows": "{module: [units, largest |pre-activation| "
+                                  "moved, that over the module's largest]}",
+                          "tol": grad_pin.MOVE_TOL},
            "max_grad_ratio_unmoved": free[worst_free],
-           "worst_param_unmoved": worst_free}
+           "worst_param_unmoved": worst_free,
+           "float64": {
+               "loss": losses["cpu_float64"],
+               "seconds": seconds["cpu_float64"],
+               "seconds_card": seconds["cuda"], "seconds_cpu": seconds["cpu"],
+               "scale_of": ("max(own largest float64 entry, 1e-4 of the "
+                            "model's largest float64 gradient)"),
+               "max_card_vs_float64": max(card64.values()),
+               "max_cpu_vs_float64": max(cpu64.values()),
+               "worst_param": [worst, card64[worst], cpu64[worst]],
+               "card_worst10": worst_ten(card64, cpu64),
+               "cpu_worst10": worst_ten(cpu64, card64),
+               "rows": "[param, this leg's distance, the other leg's]"}}
+    far = {f"{leg}/{name}": row for leg, rows in moved.items()
+           for name, row in rows.items() if not row[2] <= grad_pin.MOVE_TOL}
+    if far:
+        raise AssertionError(f"the ReLU pin moved units by more than "
+                             f"rounding: {far}")
     if not pinned[worst] <= GRAD_TOL:
         raise AssertionError(f"card and CPU gradients disagree: {worst} "
-                             f"{pinned[worst]}")
+                             f"{pinned[worst]}; float64 leg {out['float64']}")
     if not abs(losses["cuda"] / losses["cpu"] - 1) <= GRAD_TOL:
         raise AssertionError(f"card and CPU losses disagree: {losses}")
     return out
@@ -627,13 +644,15 @@ def banded_checks(torch, lmodel, dspeech, dlens, tbatch) -> dict:
                                               scale=lscale)
 
     with torch.no_grad():
-        # two launches at the decode shape: the same bits, stats too (on
-        # contiguous rows, as the wrapper hands them to the kernel)
-        cq, ck, cv = lq.contiguous(), lk.contiguous(), lv.contiguous()
-        k4_runs = [_launch_fwd(cq, ck, cv, lvalid, band, lscale, True)
-                   for _ in range(2)]
-        k4_same = all(torch.equal(a, b) for a, b in zip(*k4_runs))
-        del k4_runs, cq, ck, cv
+        # two launches at the decode shape on the encoder's strided views,
+        # and one on contiguous copies: the same bits, stats too
+        k4_runs = [_launch_fwd(*qkv, lvalid, band, lscale, True)
+                   for qkv in ((lq, lk, lv), (lq, lk, lv),
+                               (lq.contiguous(), lk.contiguous(),
+                                lv.contiguous()))]
+        k4_same = all(torch.equal(a, b) for run in k4_runs[1:]
+                      for a, b in zip(run, k4_runs[0]))
+        del k4_runs
         k4_train = {
             "shape": [Bb, Hb, Tb, db],
             "valid_frames": bvalid.sum(1).tolist(),

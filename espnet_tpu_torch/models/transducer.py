@@ -81,7 +81,8 @@ class RNNDecoder(nn.Module):
         return [getattr(self, f"rnn{i}") for i in range(self.num_layers)]
 
     def init_carry(self, batch: int, device=None):
-        zeros = torch.zeros(batch, self.hidden_size, device=device)
+        zeros = torch.zeros(batch, self.hidden_size, device=device,
+                            dtype=self.embed.weight.dtype)
         return [(zeros, zeros) for _ in range(self.num_layers)]
 
     def step(self, carry, token):

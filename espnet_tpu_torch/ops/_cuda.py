@@ -129,8 +129,8 @@ def lib() -> ctypes.CDLL:
         L.rnnt_alpha.argtypes = [p, p, p, p, p, p, i, i, i, p]
         L.rnnt_beta.argtypes = [p, p, p, p, p, i, i, i, p]
         L.rnnt_alpha.restype = L.rnnt_beta.restype = i
-        L.banded_attn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f32,
-                                      p]
+        L.banded_attn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                      *[i64] * 9, f32, p]
         L.banded_attn_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, p, p, i,
                                           i, i, i, i, *[i64] * 9, f32, p]
         L.banded_attn_bwd_dq.argtypes = [p, p, p, i, i, i, i, i, i64, i64,

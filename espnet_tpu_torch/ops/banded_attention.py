@@ -4,7 +4,8 @@ Counterpart of espnet_tpu/ops/attention_kernels.py:banded_attention, which
 on the TPU reaches the Pallas splash-attention kernel with a local mask
 (``_splash_banded_kernel``) and its VJP. Query i attends key j when
 |i - j| <= window and ``valid[b, j]``. On a CUDA tensor the forward
-launches ``banded_attn_fwd`` (csrc/banded_attn.cu) at every T; when a
+launches ``banded_attn_fwd`` (csrc/banded_attn.cu) at every T, on q, k, v
+as the caller gives them (any batch, head and time strides); when a
 gradient is wanted it runs as a ``torch.autograd.Function`` whose backward
 launches ``banded_attn_bwd`` (csrc/banded_attn_bwd.cu: one dk/dv kernel
 that also writes the band's dS into a scratch, then one dq kernel that
@@ -115,15 +116,20 @@ def _valid_arg(valid):
 
 
 def _launch_fwd(q, k, v, valid, window, sm_scale, with_stats: bool):
+    """The forward kernel on q, k, v with any batch, head and time strides
+    (the head dimension is made contiguous where it is not) -> out
+    (B, H, T, d) and, with_stats, the row statistics (B, H, T, 2)."""
+    q, k, v = _head_contiguous(q, k, v)
     B, H, T, d = q.shape
-    out = torch.empty_like(q)
+    out = torch.empty(B, H, T, d, dtype=torch.float32, device=q.device)
     stats = (torch.empty(B, H, T, 2, dtype=torch.float32, device=q.device)
              if with_stats else None)
     valid, valid_ptr = _valid_arg(valid)
     err = _cuda.lib().banded_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_ptr, out.data_ptr(),
         None if stats is None else stats.data_ptr(), B, H, T, d,
-        int(window), float(sm_scale), _cuda.stream_ptr(q.device))
+        int(window), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        float(sm_scale), _cuda.stream_ptr(q.device))
     _cuda.check(err, "banded_attn_fwd")
     _cuda.LAUNCHES["banded_attn_fwd"] += 1
     return out, stats
@@ -180,8 +186,8 @@ class BandedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, valid, window, sm_scale):
-        # the forward kernel (csrc/banded_attn.cu) reads contiguous rows
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        # both kernels read q, k, v through their strides
+        q, k, v = _head_contiguous(q, k, v)
         out, stats = _launch_fwd(q, k, v, valid, window, sm_scale, True)
         ctx.save_for_backward(q, k, v, valid, out, stats)
         ctx.window, ctx.sm_scale = window, sm_scale
@@ -213,6 +219,5 @@ def banded_attention(q, k, v, window: int, valid=None, *,
         raise ValueError(f"banded_attention: window {window} < 0")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return BandedAttention.apply(q, k, v, valid, int(window), sm_scale)
-    out, _ = _launch_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
-                         valid, window, sm_scale, False)
+    out, _ = _launch_fwd(q, k, v, valid, window, sm_scale, False)
     return out

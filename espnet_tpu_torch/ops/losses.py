@@ -32,6 +32,12 @@ from espnet_tpu_torch.utils.masks import make_non_pad_mask
 _NEG = -1e30
 
 
+def at_least_fp32(x):
+    """x in fp32, or as it is where it is float64: a float64 reference of
+    the model keeps its digits through the losses."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def _ctc_expand(labels, label_lens, blank_id: int):
     """(B, U) labels -> the (B, S = 2U+1) blank-interleaved states z, which
     states lie inside each sequence, and which may skip from s-2."""
@@ -60,7 +66,7 @@ def _unshift(a, k: int):
 def _state_logprobs(logits, labels, label_lens, blank_id: int):
     """-> log-softmax (B, T, V), each state's log-emission time-major
     (T, B, S), both fp64, and the states of ``_ctc_expand``."""
-    lp = torch.log_softmax(logits.float(), dim=-1).double()
+    lp = torch.log_softmax(at_least_fp32(logits), dim=-1).double()
     z, valid, can_skip = _ctc_expand(labels, label_lens, blank_id)
     lp_z = lp.gather(2, z[:, None, :].expand(-1, lp.shape[1], -1))
     return lp, lp_z.transpose(0, 1), z, valid, can_skip
@@ -100,7 +106,7 @@ class _CTCNLL(torch.autograd.Function):
         ctx.blank_id = blank_id
         ctx.save_for_backward(logits, logit_lens, labels, label_lens,
                               torch.stack(alphas), nll)
-        return nll.float()
+        return nll.to(at_least_fp32(logits).dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -155,7 +161,7 @@ def ctc_loss(logits, logit_lens, labels, label_lens, blank_id: int = 0):
     Impossible alignments (U > T, or too few frames for the repeats)
     count 0 and give no gradient (zero-infinity).
     """
-    per_seq = ctc_nll(logits.float(), logit_lens, labels, label_lens,
+    per_seq = ctc_nll(at_least_fp32(logits), logit_lens, labels, label_lens,
                       blank_id)
     per_seq = torch.where(torch.isfinite(per_seq)
                           & (per_seq < 0.5 * -_NEG), per_seq, 0.0)
@@ -174,7 +180,7 @@ def label_smoothing_loss(logits, targets, smoothing: float = 0.1,
     V = logits.shape[-1]
     valid = targets != padding_idx
     tgt = torch.where(valid, targets, 0).long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
+    logp = torch.log_softmax(at_least_fp32(logits), dim=-1)
     confidence = 1.0 - smoothing
     smooth_val = smoothing / (V - 1)
     # a one-hot product, not a gather: its backward adds nothing to a

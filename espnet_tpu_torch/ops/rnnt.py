@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from espnet_tpu_torch.ops import _cuda
+from espnet_tpu_torch.ops.losses import at_least_fp32
 
 NEG_INF = -1e30
 # the kernels keep a diagonal in registers: at most 32 cells a lane, in a
@@ -48,7 +49,7 @@ def rnnt_loss_plain(logits, labels, logit_lens, label_lens,
     0-padded, lengths (B,). Its gradient is torch's autograd."""
     B, T, U1, V = logits.shape
     U = U1 - 1
-    logp = torch.log_softmax(logits.float(), dim=-1)
+    logp = torch.log_softmax(at_least_fp32(logits), dim=-1)
     blank_lp = logp[..., blank_id]
     emit_lp = logp[:, :, :U, :].gather(
         3, labels.long()[:, None, :, None].expand(B, T, U, 1))[..., 0]
@@ -84,7 +85,7 @@ def lattices(logits, labels, logit_lens, label_lens, blank_id: int = 0):
     at u = U_b). As espnet_tpu/ops/pallas/rnnt_kernel.py:_lattices."""
     B, T, U1, V = logits.shape
     U = U1 - 1
-    logp = torch.log_softmax(logits.float(), dim=-1)
+    logp = torch.log_softmax(at_least_fp32(logits), dim=-1)
     blank_lp = logp[..., blank_id]
     emit_lp = logp[:, :, :U, :].gather(
         3, labels.long()[:, None, :, None].expand(B, T, U, 1))[..., 0]
@@ -260,7 +261,7 @@ def rnnt_grad(logits, labels, blank_lp, emit_lp, alpha, beta, nll, tlen,
     g_emit = -torch.exp(alpha + emit_lp + beta_u1 - logz)
     g_blank = torch.where(blank_lp <= NEG_INF / 2, 0.0, g_blank)
     g_emit = torch.where(emit_lp <= NEG_INF / 2, 0.0, g_emit)
-    sm = torch.softmax(logits.float(), dim=-1)
+    sm = torch.softmax(at_least_fp32(logits), dim=-1)
     oh_blank = F.one_hot(torch.full((), blank_id, device=sm.device),
                          V).to(sm)
     oh_label = F.one_hot(labels.long(), V).to(sm)      # (B, U, V)

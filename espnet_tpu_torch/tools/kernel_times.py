@@ -5,7 +5,10 @@ From seeded random data, at the shapes of the paths that run them:
 - ``banded_attn_fwd`` (K4) at the long-form decode shape (4, 4, 3339, 64)
   with 2168-2228 valid frames and at the train shape (4, 4, 2189, 64) with
   2148-2189, W = 64, on q, k, v given as the encoder gives them: views of
-  (B, T, H * d) projections;
+  (B, T, H * d) projections; beside SDPA with the band and the valid keys
+  as a float mask, and with its bound (the larger of its bytes at 3.35
+  TB/s and its allowed pairs' operations at the 3xTF32 rate, 165
+  TFLOP/s);
 - ``rnnt_alpha`` and ``rnnt_beta`` (K3) on (25, 145, 65) lattices, with
   every sample's lattice full (T_b + U_b = 209 diagonals) and with ragged
   lengths;
@@ -30,6 +33,10 @@ import json
 import subprocess
 import sys
 from pathlib import Path
+
+
+HBM_BYTES_PER_S = 3.35e12
+FP32_TC_FLOPS = 495e12 / 3  # fp32-accurate 3xTF32 products
 
 
 def device_times(torch, fn, n: int = 10) -> list:
@@ -97,10 +104,22 @@ def main(argv=None):
                    .transpose(1, 2) for _ in range(3))
         valid = (torch.arange(T, device="cuda")[None]
                  < torch.tensor(lens, device="cuda")[:, None])
+        allowed = banded_attention.banded_allowed(T, W, valid, "cuda")
+        mask = torch.where(allowed, 0.0, -1e9)
+        # the least work: 4 d operations per allowed pair on the tensor
+        # cores' 3xTF32 rate, q, k, v and out moved once with the valid
+        # bytes
+        t_ops = 4.0 * d * H * float(allowed.sum()) / FP32_TC_FLOPS * 1e3
+        t_bytes = (4.0 * 4 * 4 * H * T * d + 4 * T) / HBM_BYTES_PER_S * 1e3
         with torch.no_grad():
             out[f"banded_attn_fwd_{name}"] = timed(
                 torch, lambda: banded_attention.banded_attention(
-                    q, k, v, W, valid, sm_scale=scale))
+                    q, k, v, W, valid, sm_scale=scale),
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, scale=scale)) | {
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        del mask, allowed
 
     B, T, U1, V = 25, 145, 65, 25
     logits = torch.randn(B, T, U1, V, generator=g, device="cuda")

@@ -1,19 +1,23 @@
-"""Check in the SASS that the attention backward rounds its scores as the
-forward does.
+"""Check in the SASS that the attention kernels round their scores as the
+backward recomputes them.
 
 The backward kernels (csrc/attn_bwd.cuh) recompute each score as a chain of
 fmaf over d, then round the product with ``sm_scale`` and the sum with the
-bias apart (``__fmul_rn``, ``__fadd_rn``). nvcc contracts a product and a
-sum into one FFMA unless told not to; this script shows that it did not:
-it compiles each backward source for sm_90a, disassembles it with
-``cuobjdump -sass``, follows every register loaded from ``sm_scale`` (the
-last field of ``BwdArgs``) and lists the instructions that read it. Run it
-where the CUDA toolkit is, from the repository root:
+bias apart (``__fmul_rn``, ``__fadd_rn``); the banded forward
+(csrc/banded_attn.cu) rounds its scores as the banded backward does, the
+product with ``sm_scale`` alone. nvcc contracts a product and a sum into
+one FFMA unless told not to; this script shows that it did not: it
+compiles each source for sm_90a, disassembles it with ``cuobjdump -sass``,
+follows every register loaded from ``sm_scale`` (the last field of
+``BwdArgs``, the last parameter of ``banded_attn_fwd_kernel``) and lists
+the instructions that read it. Run it where the CUDA toolkit is, from the
+repository root:
 
     python3 -m espnet_tpu_torch.tools.sass_check
 
-It prints one JSON line per dk/dv kernel and exits non-zero if any of
-them reads ``sm_scale`` with anything but FMUL.
+It prints one JSON line per dk/dv kernel and per banded forward kernel,
+and exits non-zero if any of them reads ``sm_scale`` with anything but
+FMUL.
 """
 
 from __future__ import annotations
@@ -49,6 +53,25 @@ class _BwdArgs(ctypes.Structure):
         + [("sm_scale", ctypes.c_float)])
 
 
+class _BandedFwdParams(ctypes.Structure):
+    """The parameters of csrc/banded_attn.cu:banded_attn_fwd_kernel, for
+    the offset of sm_scale."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "q", "k", "v", "valid", "out", "stats")]
+        + [(n, ctypes.c_int) for n in ("H", "T", "d", "W", "nw16")]
+        + [(n, _Strides) for n in ("qs", "ks", "vs")]
+        + [("sm_scale", ctypes.c_float)])
+
+
+# each source, the kernels to check in it and where their sm_scale lies
+CHECKED = (("flash_attn_bwd.cu", r"attn_bwd_dkv_kernelI\w+E",
+            _BwdArgs.sm_scale.offset),
+           ("banded_attn_bwd.cu", r"attn_bwd_dkv_kernelI\w+E",
+            _BwdArgs.sm_scale.offset),
+           ("banded_attn.cu", r"banded_attn_fwd_kernelI\w+E",
+            _BandedFwdParams.sm_scale.offset))
+
+
 def readers_of(sass_lines, const: str) -> Counter:
     """Opcodes of the instructions that read a register loaded from the
     constant ``const`` (e.g. ``c[0x0][0x2f4]``), or a copy of it, until it
@@ -70,25 +93,28 @@ def readers_of(sass_lines, const: str) -> Counter:
             held.add(f"{name}{int(num) + 1}")
             continue
         base = op.split(".")[0]
-        reads = [r for r in held if r in regs[1:]]
+        # SHFL writes its second operand, after a predicate
+        dest, srcs = ((regs[1], regs[2:]) if base == "SHFL"
+                      else (regs[0] if regs else None, regs[1:]))
+        reads = [r for r in held if r in srcs]
         if base in ("MOV", "IMAD") and reads and (
                 base == "MOV" or op.startswith("IMAD.MOV")):
             held.add(regs[0])  # a copy: follow it
             continue
         found.update(base for _ in reads)
-        held.discard(regs[0] if regs else None)
+        held.discard(dest)
         if const in args:
             found[op.split(".")[0]] += 1
     return found
 
 
 def main() -> int:
-    const = f"c[0x0][{PARAM_BASE + _BwdArgs.sm_scale.offset:#x}]"
     nvcc = _cuda._nvcc()
     cuobjdump = str(Path(nvcc).parent / "cuobjdump")
     ok = True
     with tempfile.TemporaryDirectory() as tmp:
-        for src in ("flash_attn_bwd.cu", "banded_attn_bwd.cu"):
+        for src, pattern, offset in CHECKED:
+            const = f"c[0x0][{PARAM_BASE + offset:#x}]"
             obj = Path(tmp) / (src + ".o")
             subprocess.run([nvcc, *_cuda.NVCC_FLAGS, "-c",
                             str(_cuda.CSRC / src), "-o", str(obj)],
@@ -96,10 +122,12 @@ def main() -> int:
             sass = subprocess.run([cuobjdump, "-sass", str(obj)],
                                   capture_output=True, text=True,
                                   check=True).stdout
+            found = 0
             for func in re.split(r"\n\s*Function : ", sass)[1:]:
-                name = func.split("\n")[0]
-                if "dkv_kernel" not in name:
+                kernel = re.search(pattern, func.split("\n")[0])
+                if kernel is None:
                     continue
+                found += 1
                 lines = [re.sub(r"^/\*[0-9a-f]+\*/\s*|\s*/\*[^*]*\*/\s*$",
                                 "", line.strip())
                          for line in func.split("\n")
@@ -109,9 +137,10 @@ def main() -> int:
                 ok &= good
                 print(json.dumps({
                     "source": src,
-                    "kernel": re.search(r"attn_bwd_dkv_kernelI\w+E", name)
-                    .group(0), "sm_scale": const,
-                    "read_by": dict(readers), "ffma_free": good}))
+                    "kernel": kernel.group(0), "sm_scale": const,
+                    "read_by": dict(readers),
+                    "ffma_free": good}))
+            ok &= found > 0
     return 0 if ok else 1
 
 

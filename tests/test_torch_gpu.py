@@ -12,10 +12,10 @@ inputs (fp32 sums in another order, the attention forward's products as
 its row statistics, 1e-3 in the log domain for log-mel energies, and
 2e-5 of each gradient's own scale for the attention backward, whose sums
 run over at most Tq or Tk terms; the banded attention's the same, its
-sums running over at most 2W + 1 keys). The attention forward and
-backward, the banded backward and the log-mel give the same bits when
-launched twice on the same input, and the attention kernels the same
-bits on q, k, v given as strided views. The RNN-T sweeps take the same fp32
+sums running over at most 2W + 1 keys). The attention forwards and
+backwards and the log-mel give the same bits when launched twice on the
+same input, and the attention kernels the same bits on q, k, v given as
+strided views. The RNN-T sweeps take the same fp32
 steps as their plain versions: nll, alpha and beta equal theirs to the
 bit, and the closed-form gradient is within 1e-5 of its largest entry.
 """
@@ -515,6 +515,25 @@ def test_banded_attn_kernels_match_plain(B, H, T, d, W, lens):
     torch.testing.assert_close(
         out, banded_attention_plain(q, k, v, W, valid, **kw), atol=1e-4,
         rtol=0)
+    # the forward launched again, and on strided q, k, v: the same bits,
+    # its row statistics too; those are the plain version's within 1e-4
+    # where a row has an allowed key, and (0, -inf) where it has none
+    from espnet_tpu_torch.ops.banded_attention import (_launch_fwd,
+                                                       banded_stats_plain)
+    with torch.no_grad():
+        fwd_runs = [_launch_fwd(*qkv, valid, W, d ** -0.5, True)
+                    for qkv in ((q, k, v), (q, k, v), _strided(q, k, v))]
+        assert torch.equal(fwd_runs[0][0], out)
+        for run in fwd_runs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(run, fwd_runs[0]))
+        stats = fwd_runs[0][1]
+        want = banded_stats_plain(q, k, W, valid, **kw)
+        finite = torch.isfinite(want[..., 1])
+        assert torch.equal(finite, torch.isfinite(stats[..., 1]))
+        torch.testing.assert_close(stats[finite], want[finite], atol=1e-4,
+                                   rtol=0)
+        assert torch.equal(stats[..., 0][~finite],
+                           torch.zeros_like(stats[..., 0][~finite]))
     ins = [t.clone().requires_grad_() for t in (q, k, v)]
     kern = torch.autograd.grad(banded_attention(*ins, W, valid, **kw), ins,
                                dout)
@@ -530,12 +549,10 @@ def test_banded_attn_kernels_match_plain(B, H, T, d, W, lens):
         own = float(b.abs().max())
         scale = own if own >= 1e-3 * top else top
         assert float((a - b).abs().max()) <= 2e-5 * scale
-    # the backward's wrapper launched twice, and on strided q, k, v: the
-    # same bits
-    from espnet_tpu_torch.ops.banded_attention import (banded_attention_bwd,
-                                                       banded_stats_plain)
+    # the backward's wrapper launched twice, and on strided q, k, v, with
+    # the forward's statistics: the same bits
+    from espnet_tpu_torch.ops.banded_attention import banded_attention_bwd
     with torch.no_grad():
-        stats = banded_stats_plain(q, k, W, valid, **kw)
         runs = [banded_attention_bwd(*qkv, valid, out, stats, dout, window=W,
                                      **kw)
                 for qkv in ((q, k, v), (q, k, v), _strided(q, k, v))]
@@ -642,3 +659,54 @@ def test_two_longform_train_steps_repeat_bit_for_bit(tmp_path):
     for name in finals[0]:
         np.testing.assert_array_equal(finals[1][name], finals[0][name],
                                       err_msg=name)
+
+
+@pytest.mark.gpu
+def test_grad_check_pin_holds_the_decoder_feed_forward_to_float64():
+    # the long-form decoder's feed-forward (256 -> 1024 -> 256, ReLU) at
+    # the shape of chip_smoke's long-form grad-check batch, (2, 1112, 256):
+    # its gradients on the card in fp32 against a float64 backward on the
+    # CPU whose ReLU inputs take the card's sides (tools/grad_pin.py),
+    # each within 1e-5 of its largest entry. fp32 sums over at most 2224
+    # positions round at ~3e-6 of that; a unit left on the other side of
+    # its ReLU moves w_1's gradients by a whole unit's term, ~5e-3 here
+    # (1.9e-3 at the long-form state where the former pin let one through).
+    # Eight units are planted on the card's side of 0 and below it in
+    # float64: for the entry of each where the card's fp32 sum lies most
+    # ulps above the float64 one, the bias is set one ulp above minus the
+    # card's sum, so the card gives one ulp and float64 a negative value,
+    # which the former pin (out + (side - out).detach()) rounded to 0
+    _cuda_or_skip()
+    import copy
+    from espnet_tpu_torch.nn.transformer import PositionwiseFeedForward
+    from espnet_tpu_torch.tools import grad_pin
+    g = torch.Generator().manual_seed(11)
+    ff = PositionwiseFeedForward(256, 1024, dropout_rate=0.0).eval()
+    x, dy = (torch.randn(2, 1112, 256, generator=g) for _ in range(2))
+    with torch.no_grad():
+        ff.w_1.bias.zero_()
+        h = copy.deepcopy(ff.w_1).cuda()(x.cuda()).cpu().flatten(0, 1)
+        h64 = torch.nn.functional.linear(
+            x.double(), ff.w_1.weight.double()).flatten(0, 1)
+        ulp = torch.nextafter(h.abs(), torch.tensor(float("inf"))) - h.abs()
+        gap = ((h.double() - h64) / ulp.double()).max(0)
+        units = gap.values.topk(8).indices
+        assert bool((gap.values[units] > 2).all()), gap.values[units]
+        up = torch.nextafter(-h, torch.tensor(float("inf")))
+        ff.w_1.bias[units] = up[gap.indices[units], units]
+    signs, grads, moved = {}, {}, {}
+    for leg, dev, dtype in (("card", "cuda", torch.float32),
+                            ("float64", "cpu", torch.float64)):
+        m = copy.deepcopy(ff).to(dev, dtype)
+        grad_pin.pin_relus({"w_1": m.w_1}, signs,
+                           None if leg == "card" else moved)
+        xi = x.to(dev, dtype, copy=True).requires_grad_()
+        (m(xi) * dy.to(dev, dtype)).sum().backward()
+        grads[leg] = {"x": xi.grad.cpu().double()} | {
+            n: p.grad.cpu().double() for n, p in m.named_parameters()}
+    assert moved["w_1"][0] >= 8, moved
+    assert moved["w_1"][2] <= grad_pin.MOVE_TOL, moved
+    for name, ref in grads["float64"].items():
+        err = float((grads["card"][name] - ref).abs().max()
+                    / ref.abs().max())
+        assert err <= 1e-5, (name, err)

@@ -297,6 +297,75 @@ def test_3xtf32_backward_keeps_the_gradients_within_2e_5():
         assert _relative(a, b) < 2e-5, name
 
 
+def _banded_fwd_3xtf32(q, k, v, W, valid, scale):
+    """The banded forward kernel's arithmetic (csrc/banded_attn.cu) in
+    plain torch: 16-row slabs over the 16-key units within ceil(W / 16)
+    units of their own, one unit after the other in key order: the fp32
+    scores with the product by ``scale`` rounded alone, -inf off the band
+    and on invalid keys, the online softmax (against 0 while a row has
+    met no allowed key), O += P v as 3xTF32 -> (out, stats (m, log l))."""
+    B, H, T, d = q.shape
+    n16, nw16 = -(-T // 16), -(-min(W, T) // 16)
+    pad = 16 * n16 - T
+    qs, ks, vs = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                  .view(B, H, n16, 16, d) for t in (q, k, v))
+    key_ok = torch.nn.functional.pad(valid, (0, pad)).view(B, 1, n16, 1, 16)
+    rows = torch.arange(16 * n16).view(n16, 16, 1)
+    m = torch.full((B, H, n16, 16), float("-inf"))
+    l = torch.zeros(B, H, n16, 16)
+    acc = torch.zeros(B, H, n16, 16, d)
+    for off in range(-nw16, nw16 + 1):
+        u = torch.arange(n16) + off
+        uc = u.clamp(0, n16 - 1)
+        keys = (16 * uc).view(n16, 1, 1) + torch.arange(16)
+        allowed = (((u >= 0) & (u < n16)).view(n16, 1, 1)
+                   & ((rows - keys).abs() <= W) & key_ok[:, :, uc])
+        s = (qs @ ks[:, :, uc].transpose(-1, -2)) * scale
+        s = s.masked_fill(~allowed, float("-inf"))
+        mnew = torch.maximum(m, s.amax(dim=-1))
+        ref = torch.where(mnew == float("-inf"), 0.0, mnew)
+        alpha = torch.exp(m - ref)
+        p = torch.exp(s - ref[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + _mm_3xtf32(p, vs[:, :, uc])
+        m = mnew
+    inv = torch.where(l > 0, 1.0 / l, 0.0)
+    out = (acc * inv[..., None]).view(B, H, 16 * n16, d)[:, :, :T]
+    stats = torch.stack([torch.where(l > 0, m, 0.0), torch.log(l)], dim=-1)
+    return out, stats.view(B, H, 16 * n16, 2)[:, :, :T]
+
+
+def test_banded_forward_design_keeps_fp32_accuracy():
+    # the card's check of the banded forward (1e-4 on outputs of O(1))
+    # rests on this budget: ragged valid frames at T = 600, W = 64, rows
+    # with no allowed key among them (0, and statistics (0, -inf))
+    rng = np.random.RandomState(2)
+    B, H, T, d, W = 2, 2, 600, 64, 64
+    q, k, v = (torch.from_numpy(3.0 * rng.randn(B, H, T, d).astype(
+        np.float32)) for _ in range(3))
+    valid = torch.from_numpy(np.arange(T)[None] < np.array([[600], [377]]))
+    scale = d ** -0.5
+    out, stats = _banded_fwd_3xtf32(q, k, v, W, valid, scale)
+    plain = banded_attention.banded_attention_plain(q, k, v, W, valid,
+                                                    sm_scale=scale)
+    want = banded_attention.banded_stats_plain(q, k, W, valid,
+                                               sm_scale=scale)
+    assert float((out - plain).abs().max()) < 2e-5
+    empty = ~torch.isfinite(want[..., 1])
+    assert int(empty.sum()) == H * (T - 377 - W)
+    assert torch.equal(empty, ~torch.isfinite(stats[..., 1]))
+    assert torch.equal(out[empty[..., None].expand_as(out)],
+                       torch.zeros(int(empty.sum()) * d))
+    torch.testing.assert_close(stats[~empty], want[~empty], atol=2e-5,
+                               rtol=0)
+    # P v as one TF32 product would not do
+    pv1 = torch.softmax(banded_attention._scores(q, k, W, valid, scale)[0]
+                        .masked_fill(~banded_attention.banded_allowed(
+                            T, W, valid), -1e9), dim=-1)[:, :, :377]
+    one = _tf32_rna(pv1) @ _tf32_rna(v)
+    assert float((one - plain[:, :, :377]).abs().max()) > 1e-4
+
+
 def test_banded_attention_takes_the_encoders_strided_views():
     # the Longformer encoder hands q, k, v over as (B, H, T, d) views of
     # its (B, T, H * d) projections; the op takes them as they are
