@@ -87,7 +87,31 @@ Phases, each printing one JSON line:
     entry point from one seed (dropout and SpecAug on) must end with
     bit-identical parameters, and a run stopped after step 2 and resumed
     from its checkpoint must equal them at step 3; no CTC gradient may
-    come from torch's CTC loss.
+    come from torch's CTC loss;
+15. streaming_decode: the 100 held-out ("valid", 0..99) utterances
+    written as 16-bit WAV data dirs and read back, pushed in 640 ms
+    pieces in sorted key order through Speech2TextStreaming (greedy) on
+    the CTC-only streaming asset (assets/synth_asr_streaming): WER and
+    CER (limit: the JAX package's fp32 figure plus 0.5 points, at most
+    3%), p50 / p95 latency per push after the first 4, launches; and one
+    utterance streamed on the card and on the CPU: the encoder chunks
+    within 1e-4 of their largest entry, the ids equal;
+16. streaming_pool: StreamingSessionPool(max_sessions=8) over the first
+    8 of those utterances, one more session opened each round; each
+    round gives a piece to every open session and drains once, so that
+    rows at different offsets share a batched step: each session's ids
+    must equal its single session's, and some step must hold more than
+    one row;
+17. transducer_streaming_decode: the same 100 utterances through the
+    recipe's loop built from the port's modules (GlobalMVN per window,
+    stream_step, greedy_stream_step on the valid frames, umax 128; limit
+    as phase 15) and through Speech2TextTransducerStreaming as the JAX
+    package's class is (no MVN, the padded tail decoded; limit: the JAX
+    class's figure plus 0.5 points);
+18. transducer_batch_decode: the transducer CLI's inference() over the
+    64 held-out test utterances at natural lengths, batch 16, beam 5,
+    after a warm-up run: WER (limit: the JAX inference()'s plus 0.5
+    points) and the launches of each batch (logmel 1, nothing else).
 
 Then the nvidia-smi line, one {"kernels": [...]} line (errors, times and
 bounds of phase 4, launches from the paths that run each kernel; a bound
@@ -189,6 +213,37 @@ K4B_TOL = 2e-5
 # the long-form model's CTC log-probabilities, card (kernels, cuBLAS)
 # against CPU (plain versions), through 6 blocks in fp32
 LOGPROB_TOL = 1e-4
+# streaming: the 100 held-out ("valid", 0..99) utterances written as
+# 16-bit WAV and read back, pushed in 640 ms pieces in sorted key order,
+# as egs/synth_asr/asr1/run_streaming.py pushes them; the first 4 pieces'
+# latencies are dropped, as the recipe drops them
+STREAMING = ROOT / "assets" / "synth_asr_streaming"
+N_STREAM = 100
+STREAM_CHUNK = 10240
+LATENCY_SKIP = 4
+# the JAX package's own fp32 figures on the same input, on a CPU
+# (scripts/jax_streaming_reference.py): Speech2TextStreaming, greedy,
+# 11/547 (the asset's RESULTS.json: 2.01%); the transducer recipe's loop
+# (run_transducer_streaming.py:149-188, umax 128) 13/547 (RESULTS.json:
+# 2.38%); Speech2TextTransducerStreaming as it is (no MVN, the padded
+# tail decoded) 564/547; the transducer CLI, batch 16, beam 5, 4/335.
+# The port may be at most 0.5 points above each, and at most 3% where
+# the reference reaches it
+JAX_STREAM_WER = 11 / 547
+MAX_STREAM_WER = min(JAX_STREAM_WER + 0.005, 0.03)
+JAX_TSTREAM_RECIPE_WER = 13 / 547
+MAX_TSTREAM_RECIPE_WER = min(JAX_TSTREAM_RECIPE_WER + 0.005, 0.03)
+JAX_TSTREAM_CLASS_WER = 564 / 547
+MAX_TSTREAM_CLASS_WER = JAX_TSTREAM_CLASS_WER + 0.005
+TSTREAM_UMAX = 128
+POOL_SESSIONS = 8
+CLI_BATCH = 16
+JAX_CLI_WER = 4 / 335
+MAX_CLI_WER = JAX_CLI_WER + 0.005
+# the streaming encoder's chunks, card against CPU, through 6 blocks in
+# fp32: within 1e-4 of the largest entry, as the long-form model's
+# log-probabilities are held
+STREAM_ENC_TOL = 1e-4
 
 
 def emit(obj):
@@ -738,6 +793,323 @@ def banded_checks(torch, lmodel, dspeech, dlens, tbatch) -> dict:
              "flops": 10.0 * db * b_pairs,
              "bytes": 4.0 * (8 * Bb * Hb * Tb * db + 2 * Bb * Hb * Tb)
              + Bb * Tb}]}
+
+
+def stream_pieces(audio):
+    """[(piece, is_final)] of STREAM_CHUNK samples."""
+    return [(audio[i:i + STREAM_CHUNK], i + STREAM_CHUNK >= len(audio))
+            for i in range(0, len(audio), STREAM_CHUNK)]
+
+
+def pool_round(pool, feeds) -> dict:
+    """One piece to each session of ``feeds`` ({sid: (piece, final)}),
+    then one drain of the pool: the sessions' windows share its batched
+    steps. -> {sid: ids}; a final piece closes its session, as the
+    pool's push does."""
+    import numpy as np
+    for sid, (piece, final) in feeds.items():
+        pool._fes[sid].push(np.asarray(piece, np.float32), is_final=final)
+        pool._final[sid] = final
+    pool._drain()
+    out = {sid: list(pool._hyps[sid]) for sid in feeds}
+    for sid, (_, final) in feeds.items():
+        if final:
+            pool.close(sid)
+    return out
+
+
+def latency_ms(lats) -> dict:
+    import numpy as np
+    ms = 1e3 * np.asarray(lats[LATENCY_SKIP:])
+    return {"p50": float(np.percentile(ms, 50)),
+            "p95": float(np.percentile(ms, 95)),
+            "mean": float(ms.mean()), "n": int(ms.size)}
+
+
+def wer_cer(score_corpus, refs, hyps) -> dict:
+    words = score_corpus(refs, hyps, "word")
+    return {"wer": words["err_rate"],
+            "cer": score_corpus(refs, hyps, "char")["err_rate"],
+            "word_errors": words["sub"] + words["del"] + words["ins"],
+            "ref_words": words["ref_len"]}
+
+
+def streaming_phases(torch, _cuda, workdir: Path, smi: str) -> dict:
+    """Phases 15-18: the streaming decoders and the transducer CLI on the
+    card. -> the CLI's launches per batch."""
+    from espnet_tpu_torch.bin.asr_inference_streaming import (
+        Speech2TextStreaming, StreamingSessionPool)
+    from espnet_tpu_torch.bin.asr_transducer_inference import (
+        Speech2TextTransducerStreaming, inference)
+    from espnet_tpu_torch.data.fileio import (SoundScpReader,
+                                              read_2columns_text)
+    from espnet_tpu_torch.data.synth_speech import SynthSpeechCorpus
+    from espnet_tpu_torch.decode.transducer_search import (
+        greedy_stream_init, greedy_stream_step)
+    from espnet_tpu_torch.frontends.streaming import (
+        StreamingFeatureExtractor, subsample_window, subsampled_valid_len)
+    from espnet_tpu_torch.nn.streaming_encoder import \
+        StreamingConformerEncoder
+    from espnet_tpu_torch.utils.scoring import score_corpus
+
+    data = workdir / "stream_data"
+    SynthSpeechCorpus().materialize(data, n_train=0, n_valid=N_STREAM,
+                                    n_test=N_UTTS)
+    reader = SoundScpReader(data / "valid" / "wav.scp")
+    texts = read_2columns_text(data / "valid" / "text")
+    keys = sorted(reader.keys())
+    refs = [texts[k] for k in keys]
+    audios = [reader[k][1] for k in keys]
+    audio_s = sum(len(a) for a in audios) / 16000
+
+    def stream_all(push):
+        """Every utterance through push(piece, is_final) -> its last
+        result; the latency of each push, synchronised."""
+        outs, lats = [], []
+        for audio in audios:
+            for piece, final in stream_pieces(audio):
+                t0 = time.perf_counter()
+                res = push(piece, final)
+                torch.cuda.synchronize()
+                lats.append(time.perf_counter() - t0)
+            outs.append(res)
+        return outs, lats
+
+    # 15. streaming CTC, greedy, one session
+    s2t = Speech2TextStreaming(asr_train_config=STREAMING / "config.yaml",
+                               asr_model_file=STREAMING)
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, lats = stream_all(lambda p, f: s2t(p, is_final=f))
+    wall = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    single_ids = [r[0][2] for r in res]
+    scores = wer_cer(score_corpus, refs, [r[0][0] for r in res])
+    # one utterance on the card and on the CPU: the class's ids, and the
+    # encoder chunks of its own encoder steps on the same windows
+    cpu = Speech2TextStreaming(asr_train_config=STREAMING / "config.yaml",
+                               asr_model_file=STREAMING, device="cpu")
+    chunks, ids = {}, {}
+    for dev, m in (("cuda", s2t), ("cpu", cpu)):
+        for piece, final in stream_pieces(audios[0]):
+            ids[dev] = m(piece, is_final=final)[0][2]
+        with torch.no_grad():
+            for piece, final in stream_pieces(audios[0]):
+                m.fe.push(piece, is_final=final)
+                m._encode_pending(final)
+        chunks[dev] = torch.cat(m._enc_chunks).cpu()
+        m.reset()
+    enc_err = float((chunks["cuda"] - chunks["cpu"]).abs().max())
+    enc_scale = float(chunks["cpu"].abs().max())
+    emit({"phase": "streaming_decode", "asset": STREAMING.name,
+          "n_utts": len(keys), "chunk_samples": STREAM_CHUNK,
+          "window": [s2t.feat_window, s2t.feat_advance]} | scores
+         | {"wer_limit": MAX_STREAM_WER, "jax_fp32_wer": JAX_STREAM_WER,
+            "audio_seconds": audio_s, "wall_seconds": wall,
+            "audio_s_per_s": audio_s / wall,
+            "chunk_latency_ms": latency_ms(lats), "launches": launches,
+            "card_vs_cpu": {"enc_frames": int(chunks["cpu"].shape[0]),
+                            "enc_max_abs_err": enc_err,
+                            "enc_scale": enc_scale, "tol": STREAM_ENC_TOL,
+                            "ids_equal": ids["cuda"] == ids["cpu"],
+                            "ids_equal_main_run":
+                                ids["cuda"] == single_ids[0]},
+            "nvidia_smi": smi,
+            "examples": [[r, h[0][0]] for r, h in zip(refs[:3], res[:3])]})
+    if not scores["wer"] <= MAX_STREAM_WER:
+        raise AssertionError(f"streaming WER {scores['wer']} above "
+                             f"{MAX_STREAM_WER}")
+    if not (enc_err <= STREAM_ENC_TOL * enc_scale
+            and ids["cuda"] == ids["cpu"] == single_ids[0]):
+        raise AssertionError(f"streaming on the card and on the CPU "
+                             f"disagree: {enc_err}, {ids}")
+    del cpu
+
+    # 16. the session pool: 8 utterances, one more session opened each
+    # round; a round gives a piece to every open session and drains
+    # once, so the sessions' windows share the batched steps; each
+    # session's ids must equal its single session's
+    pool = StreamingSessionPool(s2t, max_sessions=POOL_SESSIONS)
+    plans = [stream_pieces(a) for a in audios[:POOL_SESSIONS]]
+    sids, pool_ids, rounds, round_lats = {}, {}, 0, []
+    # the rows that hold a window in each batched step (idle rows are
+    # zeros)
+    rows_per_step = []
+    step = s2t.encoder_step
+
+    def counted_step(feats, state):
+        rows_per_step.append(int((feats != 0).any(axis=(1, 2)).sum()))
+        return step(feats, state)
+
+    s2t.encoder_step = counted_step
+    t0 = time.perf_counter()
+    while len(pool_ids) < POOL_SESSIONS:
+        if rounds < POOL_SESSIONS:
+            sids[rounds] = pool.open()
+        feeds = {u: plans[u].pop(0) for u in sids if u not in pool_ids}
+        t1 = time.perf_counter()
+        ids = pool_round(pool, {sids[u]: f for u, f in feeds.items()})
+        torch.cuda.synchronize()
+        round_lats.append(time.perf_counter() - t1)
+        for u in feeds:
+            if not plans[u]:
+                pool_ids[u] = ids[sids[u]]
+        rounds += 1
+    pool_wall = time.perf_counter() - t0
+    s2t.encoder_step = step
+    pool_audio = sum(len(a) for a in audios[:POOL_SESSIONS]) / 16000
+    equal = [pool_ids[u] == single_ids[u] for u in range(POOL_SESSIONS)]
+    emit({"phase": "streaming_pool", "max_sessions": POOL_SESSIONS,
+          "rounds": rounds, "batched_steps": len(rows_per_step),
+          "rows_per_step_mean": statistics.mean(rows_per_step),
+          "rows_per_step_max": max(rows_per_step),
+          "sessions_equal_single": sum(equal),
+          "audio_seconds": pool_audio, "wall_seconds": pool_wall,
+          "audio_s_per_s": pool_audio / pool_wall,
+          "round_latency_ms": {
+              "p50": 1e3 * statistics.median(round_lats),
+              "max": 1e3 * max(round_lats)},
+          "nvidia_smi": smi})
+    if not all(equal):
+        raise AssertionError(f"pool sessions differ from their single "
+                             f"sessions: {equal}")
+    if not max(rows_per_step) > 1:
+        raise AssertionError("no batched step of the pool held two rows")
+    del pool, s2t
+
+    # 17. the streaming transducer: the recipe's loop from the port's
+    # modules (GlobalMVN per window, stream_step, greedy_stream_step on
+    # the valid frames, umax 128), then the port's class as it is
+    s2tt = Speech2TextTransducerStreaming(
+        train_config=TRANSDUCER / "config.yaml", model_file=TRANSDUCER)
+    model = s2tt.model
+    W, A = subsample_window(4, model.encoder_mod.chunk_size)
+    fc = s2tt.cfg["frontend_conf"]
+
+    # the greedy search's share: its seconds (synchronised around each
+    # call) and its loop's steps (at batch 1, a frame or an emission each)
+    search = {"seconds": 0.0, "steps": 0}
+
+    def recipe(audio):
+        fe = StreamingFeatureExtractor(
+            n_fft=fc["n_fft"], hop_length=fc["hop_length"],
+            n_mels=fc["n_mels"], device="cuda")
+        enc_st = model.encoder_mod.init_stream_state(1, "cuda")
+        dec_st = greedy_stream_init(model, 1, TSTREAM_UMAX, "cuda")
+        frames, lats = 0, []
+        with torch.no_grad():
+            for piece, final in stream_pieces(audio):
+                t0 = time.perf_counter()
+                fe.push(piece, is_final=final)
+                while (popped := fe.pop_one_window(
+                        W, A, is_final=final, with_valid=True)):
+                    win, n_valid = popped
+                    f = torch.from_numpy(win[None]).cuda()
+                    f, _ = model.normalize(f, torch.full(
+                        (1,), W, dtype=torch.long, device="cuda"))
+                    enc, enc_st = model.encoder_mod.stream_step(f, enc_st)
+                    n_out = subsampled_valid_len(4, n_valid)
+                    frames += n_out
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    dec_st = greedy_stream_step(
+                        model, enc, torch.full((1,), n_out, device="cuda"),
+                        dec_st)
+                    torch.cuda.synchronize()
+                    search["seconds"] += time.perf_counter() - t1
+                torch.cuda.synchronize()
+                lats.append(time.perf_counter() - t0)
+        n = int(dec_st.n_tok[0])
+        search["steps"] += frames + n
+        toks = s2tt.converter.ids2tokens(dec_st.tokens[0, :n].tolist())
+        return "".join(toks).replace("<space>", " ").strip(), lats
+
+    t0 = time.perf_counter()
+    outs = [recipe(a) for a in audios]
+    rwall = time.perf_counter() - t0
+    rscores = wer_cer(score_corpus, refs, [h for h, _ in outs])
+    rlats = [x for _, lat in outs for x in lat]
+    t0 = time.perf_counter()
+    res, clats = stream_all(lambda p, f: s2tt(p, is_final=f))
+    cwall = time.perf_counter() - t0
+    cscores = wer_cer(score_corpus, refs, [r[0][0] for r in res])
+    emit({"phase": "transducer_streaming_decode",
+          "asset": TRANSDUCER.name, "n_utts": len(keys),
+          "recipe_loop": rscores | {
+              "wer_limit": MAX_TSTREAM_RECIPE_WER,
+              "jax_fp32_wer": JAX_TSTREAM_RECIPE_WER, "umax": TSTREAM_UMAX,
+              "wall_seconds": rwall, "audio_s_per_s": audio_s / rwall,
+              "chunk_latency_ms": latency_ms(rlats),
+              "search_seconds": search["seconds"],
+              "search_steps": search["steps"],
+              "search_ms_per_step": 1e3 * search["seconds"]
+              / search["steps"],
+              "examples": [[r, h] for r, (h, _) in zip(refs[:3], outs)]},
+          "class": cscores | {
+              "wer_limit": MAX_TSTREAM_CLASS_WER,
+              "jax_fp32_wer": JAX_TSTREAM_CLASS_WER, "umax": s2tt.umax,
+              "wall_seconds": cwall, "audio_s_per_s": audio_s / cwall,
+              "chunk_latency_ms": latency_ms(clats),
+              "examples": [[r, h[0][0]] for r, h in zip(refs[:3], res)]},
+          "nvidia_smi": smi})
+    if not rscores["wer"] <= MAX_TSTREAM_RECIPE_WER:
+        raise AssertionError(f"streaming transducer WER {rscores['wer']} "
+                             f"above {MAX_TSTREAM_RECIPE_WER}")
+    if not cscores["wer"] <= MAX_TSTREAM_CLASS_WER:
+        raise AssertionError(f"streaming transducer class WER "
+                             f"{cscores['wer']} above "
+                             f"{MAX_TSTREAM_CLASS_WER}")
+    del s2tt, model
+
+    # 18. the transducer batch-decode CLI over the 64 held-out utterances
+    # at natural lengths, batch 16, beam 5: a warm-up run, then the
+    # counted one; launches per batch from the counts at each encoder
+    # forward (the log-mel runs before it, the search after launches none)
+    cli_args = dict(
+        data_path_and_name_and_type=[f"{data}/test/wav.scp,speech,sound"],
+        train_config=str(TRANSDUCER / "config.yaml"),
+        model_file=str(TRANSDUCER), batch_size=CLI_BATCH)
+    inference(output_dir=str(workdir / "tcli_warm"), **cli_args)
+
+    def note(module, args):
+        if isinstance(module, StreamingConformerEncoder):
+            snaps.append(dict(_cuda.LAUNCHES))
+
+    _cuda.reset_launch_counts()
+    snaps = [dict(_cuda.LAUNCHES)]
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(note)
+    t0 = time.perf_counter()
+    try:
+        inference(output_dir=str(workdir / "tcli"), **cli_args)
+    finally:
+        handle.remove()
+    torch.cuda.synchronize()
+    cli_wall = time.perf_counter() - t0
+    per_batch = [{n: b[n] - a[n] for n in a}
+                 for a, b in zip(snaps, snaps[1:])]
+    ctexts = read_2columns_text(data / "test" / "text")
+    recog = read_2columns_text(workdir / "tcli" / "1best_recog" / "text")
+    ckeys = sorted(ctexts)
+    cli_scores = wer_cer(score_corpus, [ctexts[k] for k in ckeys],
+                         [recog.get(k, "") for k in ckeys])
+    cli_audio = sum(len(SoundScpReader(data / "test" / "wav.scp")[k][1])
+                    for k in ckeys) / 16000
+    emit({"phase": "transducer_batch_decode", "n_utts": len(ckeys),
+          "batch_size": CLI_BATCH, "beam": 5} | cli_scores
+         | {"wer_limit": MAX_CLI_WER, "jax_fp32_wer": JAX_CLI_WER,
+            "audio_seconds": cli_audio,
+            "wall_seconds_with_model_build": cli_wall,
+            "launches_per_batch": per_batch, "nvidia_smi": smi})
+    want = {n: int(n == "logmel_fwd") for n in _cuda.LAUNCHES}
+    n_batches = -(-len(ckeys) // CLI_BATCH)
+    if per_batch != [want] * n_batches:
+        raise AssertionError(f"CLI launches per batch {per_batch}, not "
+                             f"{want} in each of {n_batches}")
+    if not (len(recog) == len(ckeys)
+            and cli_scores["wer"] <= MAX_CLI_WER):
+        raise AssertionError(f"transducer CLI WER {cli_scores['wer']} "
+                             f"above {MAX_CLI_WER} ({len(recog)} written)")
+    return per_batch[0]
 
 
 def main():
@@ -1623,6 +1995,9 @@ def run(torch, workdir: Path):
         raise AssertionError(f"a CTC gradient from torch's CTC loss: "
                              f"{ctc_nodes}")
 
+    # 15-18. streaming decode and the transducer CLI
+    cli_batch_launches = streaming_phases(torch, _cuda, workdir, smi)
+
     print(smi, flush=True)
     # launches of each kernel per decode and per train step on the paths
     # that run it; "launches" is the count on its main path's run: the
@@ -1631,7 +2006,8 @@ def run(torch, workdir: Path):
     # long-form train path (K4b)
     paths = {"decode": {"flagship": decode_launches,
                         "transducer": tdecode_launches,
-                        "longform": ldecode_launches},
+                        "longform": ldecode_launches,
+                        "transducer_cli_batch": cli_batch_launches},
              "train_step": {"flagship": want, "transducer": twant,
                             "longform": lwant}}
     main_runs = {"flash_attn_fwd": decode_launches,

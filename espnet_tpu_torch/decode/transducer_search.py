@@ -3,10 +3,12 @@
 
 Both walk the (frame, emission) lattice for the whole batch at once, as
 the JAX package's while-loops do, with one host check per step of
-whether every row is done. Ties in the top-k choices go to the lowest
-index, as ``jax.lax.top_k``'s do: the selections take a stable sort, not
-``torch.topk``, which promises no order among equal values (and at the
-first step every beam but the first scores -1e10, so ties are the rule).
+whether every row is done. Greedy search is ``greedy_stream_step`` over
+the whole utterance; a stream feeds it one encoder chunk at a time. Ties
+in the top-k choices go to the lowest index, as ``jax.lax.top_k``'s do:
+the selections take a stable sort, not ``torch.topk``, which promises no
+order among equal values (and at the first step every beam but the first
+scores -1e10, so ties are the rule).
 The other search types (maes, tsd, alsd, nsc, multi-blank) are not
 ported yet.
 """
@@ -14,6 +16,7 @@ ported yet.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
@@ -46,25 +49,51 @@ def _gather_carry(carry, rows):
     return [tuple(x[rows] for x in c) for c in carry]
 
 
-def greedy_search(model, enc, enc_lens, max_sym_exp: int = 3):
-    """enc (B, T, D) -> tokens (B, T * max_sym_exp), counts (B,). Each step
-    every active row either emits its argmax token (at most max_sym_exp
-    per frame) or takes blank and moves to the next frame."""
-    B, T, _ = enc.shape
-    dev = enc.device
-    Umax = T * max_sym_exp
-    rows = torch.arange(B, device=dev)
-    carry = model.decoder_init_carry(B, dev)
+class GreedyStreamState(NamedTuple):
+    """A greedy transducer decode carried across encoder chunks."""
+    tokens: torch.Tensor    # (B, Umax)
+    n_tok: torch.Tensor     # (B,)
+    dec_out: torch.Tensor   # (B, Dd)
+    carry: list
+
+
+def greedy_stream_init(model, batch: int, umax: int,
+                       device=None) -> GreedyStreamState:
+    """No token yet: the prediction network has read blank. On ``device``
+    or the model's."""
+    if device is None:
+        device = next(model.parameters()).device
+    carry = model.decoder_init_carry(batch, device)
     dec_out, carry = model.decoder_step(
-        carry, torch.zeros(B, dtype=torch.long, device=dev))
+        carry, torch.zeros(batch, dtype=torch.long, device=device))
+    tokens = torch.zeros(batch, umax, dtype=torch.long, device=device)
+    return GreedyStreamState(tokens=tokens,
+                             n_tok=torch.zeros_like(tokens[:, 0]),
+                             dec_out=dec_out, carry=carry)
+
+
+def greedy_stream_step(model, enc_chunk, chunk_lens,
+                       state: GreedyStreamState,
+                       max_sym_exp: int = 3) -> GreedyStreamState:
+    """Continue a greedy decode over the first chunk_lens (B,) frames of
+    enc_chunk (B, C, D). Each step every active row either emits its
+    argmax token (at most max_sym_exp per frame) or takes blank and moves
+    to its next frame; one host read a step asks whether any row is
+    active. Tokens past Umax overwrite the last slot, as the JAX
+    package's clipped scatter does."""
+    B, C, _ = enc_chunk.shape
+    dev = enc_chunk.device
+    Umax = state.tokens.shape[1]
+    rows = torch.arange(B, device=dev)
     t = torch.zeros(B, dtype=torch.long, device=dev)
     n_sym_frame = torch.zeros_like(t)
-    tokens = torch.zeros(B, Umax, dtype=torch.long, device=dev)
-    n_tok = torch.zeros_like(t)
-    while bool((t < enc_lens).any()):
-        logits = model.joint_step(enc[rows, t.clamp(0, T - 1)], dec_out)
+    tokens, n_tok = state.tokens.clone(), state.n_tok
+    dec_out, carry = state.dec_out, state.carry
+    while bool((t < chunk_lens).any()):
+        logits = model.joint_step(enc_chunk[rows, t.clamp(0, C - 1)],
+                                  dec_out)
         tok = logits.argmax(dim=-1)
-        active = t < enc_lens
+        active = t < chunk_lens
         emit = ((tok != model.blank_id) & active
                 & (n_sym_frame < max_sym_exp))
         new_out, new_carry = model.decoder_step(carry, tok)
@@ -75,7 +104,17 @@ def greedy_search(model, enc, enc_lens, max_sym_exp: int = 3):
         n_tok = n_tok + emit.long()
         t = t + (~emit & active).long()
         n_sym_frame = torch.where(emit, n_sym_frame + 1, 0)
-    return tokens, n_tok
+    return GreedyStreamState(tokens=tokens, n_tok=n_tok, dec_out=dec_out,
+                             carry=carry)
+
+
+def greedy_search(model, enc, enc_lens, max_sym_exp: int = 3):
+    """enc (B, T, D) -> tokens (B, T * max_sym_exp), counts (B,): the
+    streaming step over the whole utterance."""
+    B, T, _ = enc.shape
+    state = greedy_stream_init(model, B, T * max_sym_exp, enc.device)
+    state = greedy_stream_step(model, enc, enc_lens, state, max_sym_exp)
+    return state.tokens, state.n_tok
 
 
 def beam_search(model, enc, enc_lens, beam_size: int = 5,

@@ -16,22 +16,32 @@ def sub_out_len(lengths, kernel: int, stride: int):
     return (lengths - kernel + stride) // stride
 
 
-class Conv2dSubsampling(nn.Module):
-    """1/4-rate subsampling: two (k=3, s=2) convs with ReLU, then a linear
-    projection of the flattened (channel, freq') axis."""
+# (kernel, stride) of each valid conv, per subsampling rate
+RATE_CONVS = {2: [(3, 2), (3, 1)], 4: [(3, 2), (3, 2)], 6: [(3, 2), (5, 3)],
+              8: [(3, 2), (3, 2), (3, 2)]}
 
-    def __init__(self, idim: int, odim: int):
+
+class Conv2dSubsampling(nn.Module):
+    """1/``rate`` subsampling (rate 4: two (k=3, s=2) convs) with ReLU,
+    then a linear projection of the flattened (channel, freq') axis."""
+
+    def __init__(self, idim: int, odim: int, rate: int = 4):
         super().__init__()
-        self.conv0 = nn.Conv2d(1, odim, 3, stride=2)
-        self.conv1 = nn.Conv2d(odim, odim, 3, stride=2)
-        fdim = sub_out_len(sub_out_len(idim, 3, 2), 3, 2)
+        self.convs = RATE_CONVS[rate]
+        fdim = idim
+        for i, (k, s) in enumerate(self.convs):
+            self.add_module(f"conv{i}", nn.Conv2d(1 if i == 0 else odim,
+                                                  odim, k, stride=s))
+            fdim = sub_out_len(fdim, k, s)
         self.out = nn.Linear(odim * fdim, odim)
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor):
         """(B, T, F) -> (B, T', odim), lengths'."""
-        h = F.relu(self.conv0(x[:, None]))
-        h = F.relu(self.conv1(h))           # (B, C, T', F')
+        h = x[:, None]
+        olens = lengths
+        for i, (k, s) in enumerate(self.convs):
+            h = F.relu(getattr(self, f"conv{i}")(h))   # (B, C, T', F')
+            olens = sub_out_len(olens, k, s)
         B, C, T, Fo = h.shape
         h = h.permute(0, 2, 1, 3).reshape(B, T, C * Fo)
-        olens = sub_out_len(sub_out_len(lengths, 3, 2), 3, 2)
         return self.out(h), torch.clamp(olens, min=0)

@@ -48,7 +48,7 @@ COMMON_DEFAULTS: Dict[str, Any] = {
     "keep_nbest_models": 3,
     "best_model_criterion": [["valid", "loss", "min"]],
     "num_iters_per_epoch": None,
-    "batch_type": "numel",   # the JAX package's default; not ported
+    "batch_type": "numel",
     "batch_size": 20,
     "batch_bins": 1000000,
     "sort_in_batch": "descending",
@@ -79,6 +79,7 @@ UNPORTED = {
     "launch_conf": lambda v: bool(v),
     "steps_per_dispatch": lambda v: v not in (None, 1),
     "detect_anomaly": lambda v: bool(v),
+    "batch_type": lambda v: v in ("catbel", "catpow", "catpow_balance"),
 }
 # on in a config: ignored, since they only observe a run
 IGNORED = ("use_tensorboard", "use_wandb", "num_att_plot",
@@ -176,11 +177,13 @@ class AbsTask:
         batches = build_batch_sampler(
             batch_type=cfg["batch_type"] if train else "unsorted",
             batch_size=cfg["batch_size"],
+            batch_bins=cfg["batch_bins"],
             shape_files=shape_files,
             utt2shapes=(None if shape_files
                         else [cls._shapes_from_dataset(ds)]),
             keys=ds.keys(),
-            sort_in_batch=cfg.get("sort_in_batch", "descending"))
+            sort_in_batch=cfg.get("sort_in_batch", "descending"),
+            fold_length=cfg.get("fold_length", 80000))
         collate = functools.partial(
             common_collate_fn,
             bucket_growth=cfg.get("collate_bucket_growth", 1.25),

@@ -159,7 +159,7 @@ def test_entry_point_trains_on_the_cpu_only_when_asked(datadir, tmp_path,
 @pytest.mark.parametrize("option,value", [("train_dtype", "bfloat16"),
                                           ("accum_grad", 2),
                                           ("use_mesh", True),
-                                          ("batch_type", "numel")])
+                                          ("batch_type", "catbel")])
 def test_unported_options_raise(datadir, tmp_path, option, value):
     with pytest.raises(NotImplementedError):
         ASRTask.main(tiny_cfg(datadir, tmp_path, **{option: value}))
