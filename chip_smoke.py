@@ -111,7 +111,39 @@ Phases, each printing one JSON line:
 18. transducer_batch_decode: the transducer CLI's inference() over the
     64 held-out test utterances at natural lengths, batch 16, beam 5,
     after a warm-up run: WER (limit: the JAX inference()'s plus 0.5
-    points) and the launches of each batch (logmel 1, nothing else).
+    points) and the launches of each batch (logmel 1, nothing else);
+19. enh_separate: the enhancement recipe's stage 3 on the TCN separator
+    (assets/synth_enh_tcn): the 50 SynthMixCorpus test mixtures (4 s)
+    through SeparateSpeech(fs=16000) in batches of 10, each estimate
+    scaled to a 0.95 peak past one and written as a 16-bit WAV, scored
+    against the references and the mixture baseline: SI-SNR, SI-SNRi
+    (limit: the JAX package's fp32 figure on the same input, from
+    scripts/jax_enh_reference.py, less 0.05 dB), SDR; the first batch on
+    the card and on the CPU (within 1e-4 of the largest sample); separated
+    audio seconds per second (one batch, synchronised, median of three
+    after a warm-up);
+20. enh_cli: bin/enh_inference.py:inference() over the first 8 of those
+    mixtures, read back from their WAVs; SeparateSpeech on the same
+    mixtures one at a time must write the same WAVs and scores;
+21. enh_train: the training entry point on the asset's config
+    (steps_per_dispatch 8, run one step at a time) from its weights over
+    40 train and 16 valid mixtures: batch 8, 10 steps (the warm-up's
+    learning rate below 4e-5), per-step records, median step ms, peak
+    memory, validation SI-SNR before and after (at most 0.1 dB lower),
+    two runs from one seed and a resumed one bit-identical, and
+    grad_check (the TCN's PReLU inputs and its mask ReLU pinned);
+22. enh_streaming: SeparateSpeechStreaming(segment_size=1.0) over the
+    50 mixtures in 640 ms pushes: the streamed SI-SNRi (limit: the JAX
+    class's on the CPU, +-0.05 dB), p50 / p95 latency per push after the
+    first 4, and one mixture on the card and on the CPU;
+23. enh_s2t: the joint enhancement + ASR model built from the TCN asset
+    and the flagship: main_path's 64 clean utterances decoded (beam 10,
+    CTC 0.3; K1 and K2 launched; WER on the first 16 at most the JAX
+    package's on the same rows plus 0.5 points, and its ids against the
+    JAX package's), 6 train steps at batch 25 on the train dir with the
+    clean utterance as the mixture and as speech_ref1 (launches 6 / 12 / 0
+    per step: the frontend is differentiated, which K2 cannot be), and
+    grad_check.
 
 Then the nvidia-smi line, one {"kernels": [...]} line (errors, times and
 bounds of phase 4, launches from the paths that run each kernel; a bound
@@ -244,6 +276,27 @@ MAX_CLI_WER = JAX_CLI_WER + 0.005
 # fp32: within 1e-4 of the largest entry, as the long-form model's
 # log-probabilities are held
 STREAM_ENC_TOL = 1e-4
+# enhancement (phases 19-22): the TCN asset, the recipe's 50 test mixtures
+# of 4 s in batches of 10, estimates scaled to a 0.95 peak past one; the
+# JAX package's fp32 figures on the same input from
+# scripts/jax_enh_reference.py (run on the CPU, its output committed)
+ENH = ROOT / "assets" / "synth_enh_tcn"
+ENH_REFERENCE = ROOT / "scripts" / "jax_enh_reference.json"
+N_MIX = 50
+SEP_BATCH = 10
+SEP_PEAK = 0.95
+SI_SNRI_MARGIN = 0.05   # dB below (or, streamed, either side of) JAX's
+SEP_TOL = 1e-4          # card against CPU, of the largest sample
+N_CLI_MIX = 8
+ENH_N_TRAIN, ENH_N_VALID = 40, 16
+ENH_TRAIN_BATCH = 8
+ENH_TRAIN_STEPS = 10
+ENH_MAX_LR = 4e-5       # the asset's warm-up gives 3.3e-5 at step 10
+ENH_VALID_DROP = 0.1    # dB of validation SI-SNR
+# the joint model (phase 23): WER on the reference's first 16 utterances
+# at most the JAX package's + 0.5 points; 6 train steps at batch 25
+S2T_WER_MARGIN = 0.005
+S2T_TRAIN_STEPS = 6
 
 
 def emit(obj):
@@ -453,11 +506,12 @@ def check_steps(steps, per_step, want, loss_keys, n_steps=TRAIN_STEPS):
             raise AssertionError(f"launches per step {n}, not {want}")
 
 
-def grad_check(torch, config: Path, model_file: Path, build, batch) -> dict:
-    """One backward of the model of (config, model_file) in eval mode on
-    ``batch``, on the card and on the CPU: the loss and each parameter's
-    gradient must agree within GRAD_TOL of its scale (the larger of its
-    own largest entry and 1e-4 of the model's largest gradient).
+def grad_check(torch, task, config: Path, model_file: Path, batch) -> dict:
+    """One backward of ``task``'s model of (config, model_file) in eval
+    mode on ``batch``, on the card and on the CPU: the loss and each
+    parameter's gradient must agree within GRAD_TOL of its scale (the
+    larger of its own largest entry and 1e-4 of the model's largest
+    gradient).
 
     A ReLU has no derivative at 0, and fp32 rounding decides on which
     side of it a pre-activation within ~1e-7 of 0 falls: the two devices
@@ -471,23 +525,35 @@ def grad_check(torch, config: Path, model_file: Path, build, batch) -> dict:
     |pre-activation| (more than rounding) fails it.
 
     Beside the check, a float64 backward of the same model on the CPU
-    (the plain versions, the card's ReLU sides) is the reference of both
+    (the plain versions, the card's pins) is the reference of both
     fp32 legs: each parameter's distance from it on the same scale, for
-    the card and for the CPU, the worst ten of each."""
+    the card and for the CPU, the worst ten of each.
+
+    The CPU legs also take the card's inputs of every rel-pos
+    self-attention (grad_pin.pin_attention) and a joint model's
+    separated estimates (grad_pin.pin_estimates), moves bounded as the
+    ReLU pin's: a trained Conformer's scores reach ~1e3 with most rows on
+    one key, where the gradients of q and k turn the forward's rounding
+    into ~1e-3 of their scale (the joint model's 8 utterances on an
+    H100: card against CPU 0.125 with no pin, 4.6e-4 with the pins);
+    with one set of inputs each leg's attention backward is held to
+    GRAD_TOL on its own, and a forward that differs by more than
+    rounding fails the move bound."""
     from espnet_tpu_torch import convert
-    from espnet_tpu_torch.tasks.asr import build_model_from_file
     from espnet_tpu_torch.tools import grad_pin
     from espnet_tpu_torch.train.trainer import to_device
     signs, moved = {}, {"cpu": {}, "cpu_float64": {}}
     losses, grads, seconds = {}, {}, {}
     for dev in ("cuda", "cpu_free", "cpu", "cpu_float64"):
         t0 = time.perf_counter()
-        m, _ = build_model_from_file(config, model_file, dev.split("_")[0],
-                                     build=build)
+        m, _ = task.build_model_from_file(config, model_file,
+                                          dev.split("_")[0])
         if dev == "cpu_float64":
             grad_pin.to_float64(m)
         hooks = (grad_pin.pin_relus(grad_pin.relu_inputs(m), signs,
                                     moved.get(dev))
+                 + grad_pin.pin_estimates(m, signs, moved.get(dev))
+                 + grad_pin.pin_attention(m, signs, moved.get(dev))
                  if dev != "cpu_free" else [])
         loss, _, _ = m(**to_device(batch, dev.split("_")[0]))
         loss.backward()
@@ -516,14 +582,16 @@ def grad_check(torch, config: Path, model_file: Path, build, batch) -> dict:
         return [[n, mine[n], other[n]]
                 for n in sorted(mine, key=mine.get, reverse=True)[:10]]
 
-    out = {"batch": len(batch["speech"]), "loss_card": losses["cuda"],
+    out = {"batch": len(next(iter(batch.values()))),
+           "loss_card": losses["cuda"],
            "loss_cpu": losses["cpu"], "max_grad_ratio": pinned[worst],
            "worst_param": worst, "n_params": len(pinned), "tol": GRAD_TOL,
-           "relu_moved": {"cpu": moved["cpu"],
+           "pins_moved": {"cpu": moved["cpu"],
                           "float64": moved["cpu_float64"],
-                          "rows": "{module: [units, largest |pre-activation| "
-                                  "moved, that over the module's largest]}",
+                          "rows": "{pin: [entries moved, largest move, that "
+                                  "over the pinned tensor's largest]}",
                           "tol": grad_pin.MOVE_TOL},
+           "n_over_tol": sum(r > GRAD_TOL for r in pinned.values()),
            "max_grad_ratio_unmoved": free[worst_free],
            "worst_param_unmoved": worst_free,
            "float64": {
@@ -541,7 +609,7 @@ def grad_check(torch, config: Path, model_file: Path, build, batch) -> dict:
     far = {f"{leg}/{name}": row for leg, rows in moved.items()
            for name, row in rows.items() if not row[2] <= grad_pin.MOVE_TOL}
     if far:
-        raise AssertionError(f"the ReLU pin moved units by more than "
+        raise AssertionError(f"a pin moved entries by more than "
                              f"rounding: {far}")
     if not pinned[worst] <= GRAD_TOL:
         raise AssertionError(f"card and CPU gradients disagree: {worst} "
@@ -1112,6 +1180,416 @@ def streaming_phases(torch, _cuda, workdir: Path, smi: str) -> dict:
     return per_batch[0]
 
 
+def si_snr_db(est, ref, eps: float = 1e-8) -> float:
+    """SI-SNR in dB in float64, both zero-mean first (as
+    scripts/jax_enh_reference.py computes it)."""
+    import numpy as np
+    est = np.asarray(est, np.float64) - np.mean(est)
+    ref = np.asarray(ref, np.float64) - np.mean(ref)
+    s = np.dot(est, ref) * ref / (np.dot(ref, ref) + eps)
+    e = est - s
+    return float(10 * np.log10((np.dot(s, s) + eps) / (np.dot(e, e) + eps)))
+
+
+def pit_si_snr(ests, refs) -> float:
+    """The best speaker permutation's mean SI-SNR (two speakers)."""
+    import numpy as np
+    return max(np.mean([si_snr_db(ests[i], refs[p])
+                        for i, p in enumerate(perm)])
+               for perm in ((0, 1), (1, 0)))
+
+
+def enh_config(workdir: Path, name: str, **extra):
+    """The enhancement asset's config with this run's data dirs and the
+    asset's weights as init_param, written to workdir/name.yaml."""
+    from espnet_tpu_torch.tasks.enh import EnhancementTask
+    from espnet_tpu_torch.utils.config import dump_yaml, resolve_config
+    data = workdir / "enh_data"
+    triples = {split: [f"{data}/{split}/wav.scp,speech_mix,sound",
+                       f"{data}/{split}/spk1.scp,speech_ref1,sound",
+                       f"{data}/{split}/spk2.scp,speech_ref2,sound"]
+               for split in ("train", "valid")}
+    cfg = resolve_config(EnhancementTask.default_config(),
+                         ENH / "config.yaml", {
+        "output_dir": str(workdir / name),
+        "train_data_path_and_name_and_type": triples["train"],
+        "valid_data_path_and_name_and_type": triples["valid"],
+        "train_shape_file": [f"{data}/train/speech_mix_shape"],
+        "valid_shape_file": [f"{data}/valid/speech_mix_shape"],
+        "init_param": str(ENH / "params_f16.npz"),
+        "batch_size": ENH_TRAIN_BATCH, "max_epoch": 1,
+        "num_iters_per_epoch": ENH_TRAIN_STEPS, "log_interval": 1,
+        **extra})
+    dump_yaml(cfg, workdir / f"{name}.yaml")
+    return cfg, workdir / f"{name}.yaml"
+
+
+def enhancement_phases(torch, _cuda, workdir: Path, smi: str, speech_np,
+                       lengths_np, refs) -> dict:
+    """Phases 19-23: separation, its CLI, training and streaming on the
+    TCN asset, then the joint enhancement + ASR model. -> the joint
+    model's launches per decode and per train step."""
+    import numpy as np
+
+    from espnet_tpu_torch import convert
+    from espnet_tpu_torch.bin import enh_s2t_train, enh_train
+    from espnet_tpu_torch.bin.enh_inference import (SeparateSpeech,
+                                                    inference)
+    from espnet_tpu_torch.bin.enh_inference_streaming import \
+        SeparateSpeechStreaming
+    from espnet_tpu_torch.bin.enh_scoring import score_pairs
+    from espnet_tpu_torch.data.fileio import SoundScpReader, SoundScpWriter
+    from espnet_tpu_torch.data.synth_speech import SynthMixCorpus
+    from espnet_tpu_torch.decode.beam_search import (BeamSearchConfig,
+                                                     batch_beam_search)
+    from espnet_tpu_torch.models.enh.model import EnhancementModel
+    from espnet_tpu_torch.models.enh_s2t import EnhS2TModel
+    from espnet_tpu_torch.tasks.enh import EnhancementTask, EnhS2TTask
+    from espnet_tpu_torch.text.tokenizer import (TokenIDConverter,
+                                                 build_tokenizer)
+    from espnet_tpu_torch.train.trainer import evaluate
+    from espnet_tpu_torch.utils.config import dump_yaml
+    from espnet_tpu_torch.utils.scoring import score_corpus
+
+    ref = json.loads(ENH_REFERENCE.read_text(encoding="utf-8"))
+    data = workdir / "enh_data"
+    t0 = time.perf_counter()
+    corpus = SynthMixCorpus()
+    corpus.materialize(data, n_train=0, n_valid=0, n_test=N_MIX)
+    SynthMixCorpus(seconds=4.0).materialize(data, n_train=ENH_N_TRAIN,
+                                            n_valid=ENH_N_VALID, n_test=0)
+    mixtures = [corpus.mixture("test", i) for i in range(N_MIX)]
+    mixes = [m for m, _, _ in mixtures]
+    data_s = time.perf_counter() - t0
+    test_refs = [str(data / "test" / f"spk{s}.scp") for s in (1, 2)]
+
+    # 19. the recipe's stage 3 on the card: batches of 10, estimates
+    # scaled to a 0.95 peak past one, 16-bit WAVs, scored against the
+    # references and the mixture baseline
+    sep = SeparateSpeech(train_config=ENH / "config.yaml", model_file=ENH,
+                         fs=16000)
+    sep_dir = workdir / "separated"
+    writers = [SoundScpWriter(sep_dir / f"spk{s}", sep_dir / f"spk{s}.scp")
+               for s in (1, 2)]
+    _cuda.reset_launch_counts()
+    batch_s = []
+    for b in range(0, N_MIX, SEP_BATCH):
+        t1 = time.perf_counter()
+        ests = sep(np.stack(mixes[b:b + SEP_BATCH]))
+        batch_s.append(time.perf_counter() - t1)
+        for j in range(len(ests[0])):
+            for s in range(2):
+                e = np.asarray(ests[s][j], np.float32)
+                peak = np.abs(e).max()
+                if peak > SEP_PEAK:
+                    e = e * (SEP_PEAK / peak)
+                writers[s][f"test_{b + j:05d}"] = (16000, e)
+    sep_launches = dict(_cuda.LAUNCHES)
+    for w in writers:
+        w.close()
+    enh = score_pairs(test_refs, [str(sep_dir / f"spk{s}.scp")
+                                  for s in (1, 2)], sep_dir / "score")
+    base = score_pairs(test_refs, [str(data / "test" / "wav.scp")] * 2)
+    si_snri = enh["si_snr"] - base["si_snr"]
+    # card against CPU on the first batch
+    cpu_sep = SeparateSpeech(train_config=ENH / "config.yaml",
+                             model_file=ENH, fs=16000, device="cpu")
+    first = np.stack(mixes[:SEP_BATCH])
+    card_ests, cpu_ests = sep(first), cpu_sep(first)
+    sep_err = max(rel_err(torch.from_numpy(a), torch.from_numpy(b))
+                  for a, b in zip(card_ests, cpu_ests))
+    # separated audio seconds per second: one batch of 10, synchronised,
+    # the median of three after a warm-up
+    sep(first)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sep(first)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    jax_si_snri = ref["stage3"]["si_snri"]
+    emit({"phase": "enh_separate", "asset": ENH.name, "n_mixtures": N_MIX,
+          "batch_size": SEP_BATCH, "data_seconds": data_s,
+          "si_snr": enh["si_snr"], "si_snr_mix": base["si_snr"],
+          "si_snri": si_snri, "sdr": enh["sdr"], "snr": enh["snr"],
+          "jax_fp32_si_snri": jax_si_snri,
+          "results_json_si_snri": ref["stage3"]["results_json_si_snri"],
+          "si_snri_limit": jax_si_snri - SI_SNRI_MARGIN,
+          "card_vs_cpu_rel_err": sep_err, "tol": SEP_TOL,
+          "batch_seconds": batch_s, "audio_s_per_s": SEP_BATCH * 4.0
+          / statistics.median(walls), "timed_seconds": walls,
+          "launches": sep_launches, "nvidia_smi": smi})
+    if not si_snri >= jax_si_snri - SI_SNRI_MARGIN:
+        raise AssertionError(f"SI-SNRi {si_snri} below the JAX package's "
+                             f"{jax_si_snri} - {SI_SNRI_MARGIN}")
+    if not sep_err <= SEP_TOL:
+        raise AssertionError(f"separation on the card and the CPU "
+                             f"disagree: {sep_err}")
+    del cpu_sep
+
+    # 20. the CLI's inference() on a data dir of the first 8 mixtures,
+    # scored; the API on the same read-back mixtures, one at a time, must
+    # write the same files
+    cli_dir = data / "cli_test"
+    cli_dir.mkdir()
+    (cli_dir / "wav.scp").write_text("".join(
+        (data / "test" / "wav.scp").read_text().splitlines(True)[:N_CLI_MIX]))
+    inference(output_dir=str(workdir / "enh_cli"),
+              data_path_and_name_and_type=[
+                  f"{cli_dir}/wav.scp,speech_mix,sound"],
+              train_config=str(ENH / "config.yaml"), model_file=str(ENH),
+              fs=16000)
+    reader = SoundScpReader(cli_dir / "wav.scp")
+    api = [SoundScpWriter(workdir / "enh_api" / f"spk{s}",
+                          workdir / "enh_api" / f"spk{s}.scp")
+           for s in (1, 2)]
+    for key in reader.keys():
+        ests = sep(reader[key][1])
+        for s in range(2):
+            api[s][key] = (16000, ests[s][0])
+    for w in api:
+        w.close()
+    scored = {}
+    for name in ("enh_cli", "enh_api"):
+        refs_8 = []
+        for s in (1, 2):
+            lines = (data / "test" / f"spk{s}.scp").read_text()
+            (workdir / f"{name}_ref{s}.scp").write_text("".join(
+                lines.splitlines(True)[:N_CLI_MIX]))
+            refs_8.append(str(workdir / f"{name}_ref{s}.scp"))
+        scored[name] = score_pairs(
+            refs_8, [str(workdir / name / f"spk{s}.scp") for s in (1, 2)],
+            workdir / name / "score")
+    files_equal = all(
+        (workdir / "enh_cli" / "score" / f).read_text()
+        == (workdir / "enh_api" / "score" / f).read_text()
+        for f in ("SI_SNR", "SDR", "SNR", "RESULTS"))
+    wavs_equal = all(
+        SoundScpReader(workdir / "enh_cli" / f"spk{s}.scp")[k][1].tobytes()
+        == SoundScpReader(workdir / "enh_api" / f"spk{s}.scp")[k][1]
+        .tobytes() for s in (1, 2) for k in reader.keys())
+    emit({"phase": "enh_cli", "n_mixtures": N_CLI_MIX,
+          "cli": scored["enh_cli"], "api": scored["enh_api"],
+          "score_files_equal": files_equal, "wavs_equal": wavs_equal})
+    if not (files_equal and wavs_equal):
+        raise AssertionError("the CLI's files differ from the API's")
+
+    # 21. training from the asset: its config (steps_per_dispatch 8 runs
+    # one step at a time), batch 8, 10 steps, validation before and after
+    # at the warm-up's low learning rate; two runs from one seed; one
+    # backward card against CPU
+    cfg, cfg_path = enh_config(workdir, "enh_train")
+    valid_if = EnhancementTask.build_iter_factory(cfg, train=False)
+    start_model, _ = EnhancementTask.build_model_from_file(
+        ENH / "config.yaml", ENH)
+    before = evaluate(start_model, valid_if, "cuda")
+    del start_model
+    trainer, per_step, enh_launches, enh_wall, enh_peak = train_run(
+        torch, _cuda, enh_train.main, cfg_path, EnhancementModel)
+    steps = trainer.step_stats
+    after = trainer.reporter.stats[1]["valid"]
+    opt = trainer.optimizer
+    lr_last = opt.schedule(opt.count - 1)
+    step_ms = [1e3 * s["train_time"] for s in steps]
+    none = {n: 0 for n in _cuda.LAUNCHES}
+    check_steps(steps, per_step, none, ("loss", "si_snr"),
+                n_steps=ENH_TRAIN_STEPS)
+    _, gbatch = valid_if.collate_fn([valid_if.dataset[k] for k in
+                                     valid_if.epoch_batches(0)[0]
+                                     [:GRAD_BATCH]])
+    emit({"phase": "enh_train", "n_train": ENH_N_TRAIN,
+          "n_valid": ENH_N_VALID, "batch_size": ENH_TRAIN_BATCH,
+          "steps_per_dispatch_in_config": cfg["steps_per_dispatch"],
+          "steps": [{k: s[k] for k in ("loss", "si_snr", "grad_norm",
+                                       "skipped")} | {"ms": ms}
+                    for s, ms in zip(steps, step_ms)],
+          "step_ms_median_3_10": statistics.median(step_ms[2:]),
+          "peak_memory_bytes": enh_peak, "wall_seconds": enh_wall,
+          "launches": enh_launches, "lr_last": lr_last,
+          "valid_before": before, "valid_after": after,
+          "determinism": determinism(
+              EnhancementTask, lambda n, **kw: enh_config(workdir, n, **kw),
+              "enh"),
+          "grad_check": grad_check(torch, EnhancementTask,
+                                   ENH / "config.yaml", ENH, gbatch),
+          "nvidia_smi": smi})
+    if not lr_last < ENH_MAX_LR:
+        raise AssertionError(f"learning rate {lr_last} not below "
+                             f"{ENH_MAX_LR}")
+    if not after["si_snr"] >= before["si_snr"] - ENH_VALID_DROP:
+        raise AssertionError(f"validation SI-SNR fell: {before['si_snr']} "
+                             f"-> {after['si_snr']}")
+
+    # 22. streaming separation over the 50 mixtures in 640 ms pushes
+    stream = SeparateSpeechStreaming(train_config=ENH / "config.yaml",
+                                     model_file=ENH, segment_size=1.0,
+                                     fs=16000)
+    lats, gains, streamed = [], [], []
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    for mix, r1, r2 in mixtures:
+        parts = [[], []]
+        for piece, final in stream_pieces(mix):
+            t1 = time.perf_counter()
+            got = stream(piece, is_final=final)
+            torch.cuda.synchronize()
+            lats.append(time.perf_counter() - t1)
+            for s, g in enumerate(got):
+                parts[s].append(g)
+        ests = [np.concatenate(p)[:len(mix)] for p in parts]
+        streamed.append(ests)
+        gains.append(pit_si_snr(ests, [r1, r2])
+                     - np.mean([si_snr_db(mix, r) for r in (r1, r2)]))
+    stream_wall = time.perf_counter() - t0
+    stream_launches = dict(_cuda.LAUNCHES)
+    cpu_stream = SeparateSpeechStreaming(
+        train_config=ENH / "config.yaml", model_file=ENH, segment_size=1.0,
+        fs=16000, device="cpu")
+    parts = [[], []]
+    for piece, final in stream_pieces(mixes[0]):
+        for s, g in enumerate(cpu_stream(piece, is_final=final)):
+            parts[s].append(g)
+    stream_err = max(
+        rel_err(torch.from_numpy(a),
+                torch.from_numpy(np.concatenate(p)[:len(mixes[0])]))
+        for a, p in zip(streamed[0], parts))
+    stream_si_snri = float(np.mean(gains))
+    jax_stream = ref["streaming"]["si_snri"]
+    emit({"phase": "enh_streaming", "n_mixtures": N_MIX,
+          "segment_size": 1.0, "chunk_samples": STREAM_CHUNK,
+          "si_snri": stream_si_snri, "jax_fp32_si_snri": jax_stream,
+          "si_snri_limit": [jax_stream - SI_SNRI_MARGIN,
+                            jax_stream + SI_SNRI_MARGIN],
+          "push_latency_ms": latency_ms(lats), "wall_seconds": stream_wall,
+          "audio_s_per_s": N_MIX * 4.0 / stream_wall,
+          "launches": stream_launches,
+          "card_vs_cpu_rel_err": stream_err, "tol": SEP_TOL,
+          "nvidia_smi": smi})
+    if not abs(stream_si_snri - jax_stream) <= SI_SNRI_MARGIN:
+        raise AssertionError(f"streamed SI-SNRi {stream_si_snri} not within "
+                             f"{SI_SNRI_MARGIN} of {jax_stream}")
+    if not stream_err <= SEP_TOL:
+        raise AssertionError(f"streaming on the card and the CPU disagree: "
+                             f"{stream_err}")
+    del stream, cpu_stream, sep
+
+    # 23. the joint model from the two assets: the flagship's 64 held-out
+    # clean utterances decoded (beam 10, CTC 0.3); 6 train steps with the
+    # clean utterance as the mixture and as speech_ref1; one backward
+    # card against CPU
+    jcfg = EnhS2TTask.config_from_assets(ENH, ASSET)
+    init = workdir / "enh_s2t_init.npz"
+    np.savez(init, **EnhS2TTask.weights_from_assets(ENH, ASSET))
+    jmodel = convert.load_flax_params(EnhS2TTask.build_model(jcfg),
+                                      convert.read_npz(init)).cuda().eval()
+    speech = torch.from_numpy(speech_np).cuda()
+    lengths = torch.from_numpy(lengths_np).cuda()
+    search = BeamSearchConfig(beam_size=BEAM, ctc_weight=CTC_WEIGHT)
+    conv = TokenIDConverter(list(jmodel.token_list))
+    tok = build_tokenizer("char")
+
+    def decode():
+        with torch.no_grad():
+            enc, enc_lens = jmodel.encode(speech, lengths)
+            return [h[0][0] for h in batch_beam_search(jmodel, enc,
+                                                       enc_lens, search)]
+
+    decode()
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    ids = decode()
+    torch.cuda.synchronize()
+    dec_wall = time.perf_counter() - t0
+    s2t_decode_launches = dict(_cuda.LAUNCHES)
+    # the level of the first estimate, which the ASR branch reads,
+    # against the clean utterance's
+    with torch.no_grad():
+        est = jmodel.enh.forward_enhance(speech, lengths)[0][0]
+    level = [float(est[u, :n].norm() / speech[u, :n].norm())
+             for u, n in enumerate(lengths_np.tolist())]
+    hyps = [tok.tokens2text(conv.ids2tokens(i)) for i in ids]
+    n_ref = ref["enh_s2t"]["n_utts"]
+    first = wer_cer(score_corpus, refs[:n_ref], hyps[:n_ref])
+    differ = [[u, ids[u], want] for u, want in
+              enumerate(ref["enh_s2t"]["ids"]) if ids[u] != want]
+    jax_wer = ref["enh_s2t"]["wer"]
+    decode_out = {"n_utts": len(ids), "beam": BEAM,
+                  "ctc_weight": CTC_WEIGHT,
+                  "batch_shape": list(speech.shape)} \
+        | wer_cer(score_corpus, refs, hyps) | {
+        f"first_{n_ref}": first, f"jax_fp32_first_{n_ref}": {
+            k: ref["enh_s2t"][k] for k in ("wer", "cer", "word_errors",
+                                           "ref_words")},
+        "wer_limit": jax_wer + S2T_WER_MARGIN,
+        f"ids_equal_first_{n_ref}": n_ref - len(differ),
+        "ids_differ": differ,
+        "wall_seconds": dec_wall,
+        "audio_s_per_s": float(lengths_np.sum()) / 16000 / dec_wall,
+        "estimate_rms_over_input_rms": {"median": statistics.median(level),
+                                        "min": min(level),
+                                        "max": max(level)},
+        "launches": s2t_decode_launches,
+        "examples": [[r, h] for r, h in zip(refs[:3], hyps[:3])]}
+    data_asr = workdir / "data" / "train"
+    tcfg = dict(jcfg, output_dir=str(workdir / "enh_s2t"),
+                train_data_path_and_name_and_type=[
+                    f"{data_asr}/wav.scp,speech_mix,sound",
+                    f"{data_asr}/text,text,text",
+                    f"{data_asr}/wav.scp,speech_ref1,sound"],
+                valid_data_path_and_name_and_type=[],
+                init_param=str(init), batch_type="sorted",
+                batch_size=TRAIN_BATCH, max_epoch=1,
+                num_iters_per_epoch=S2T_TRAIN_STEPS, log_interval=1,
+                optim="adam", optim_conf={"lr": 0.002},
+                scheduler="warmuplr", scheduler_conf={"warmup_steps": 600},
+                grad_clip=5.0, seed=0)
+    tcfg_path = workdir / "enh_s2t.yaml"
+    dump_yaml(tcfg, tcfg_path)
+    trainer, per_step, s2t_launches, s2t_wall, s2t_peak = train_run(
+        torch, _cuda, enh_s2t_train.main, tcfg_path, EnhS2TModel)
+    steps = trainer.step_stats
+    s2t_want = dict(none, logmel_fwd=1, flash_attn_fwd=6, flash_attn_bwd=12)
+    check_steps(steps, per_step, s2t_want, ("loss", "asr_loss", "enh_loss"),
+                n_steps=S2T_TRAIN_STEPS)
+    # the grad check's batch: the first 8 valid utterances
+    valid_asr = workdir / "data" / "valid"
+    tif = EnhS2TTask.build_iter_factory(
+        EnhS2TTask.default_config() | tcfg | {
+            "valid_data_path_and_name_and_type": [
+                f"{valid_asr}/wav.scp,speech_mix,sound",
+                f"{valid_asr}/text,text,text",
+                f"{valid_asr}/wav.scp,speech_ref1,sound"]}, train=False)
+    _, gbatch = tif.collate_fn([tif.dataset[k] for k in
+                                tif.epoch_batches(0)[0][:GRAD_BATCH]])
+    step_ms = [1e3 * s["train_time"] for s in steps]
+    emit({"phase": "enh_s2t", "assets": [ENH.name, ASSET.name],
+          "decode": decode_out,
+          "train": {"batch_size": TRAIN_BATCH,
+                    "steps": [{k: s[k] for k in ("loss", "asr_loss",
+                                                 "asr_loss_ctc",
+                                                 "asr_loss_att", "enh_loss",
+                                                 "grad_norm", "skipped")}
+                              | {"ms": ms, "launches": n}
+                              for s, ms, n in zip(steps, step_ms, per_step)],
+                    "step_ms_median_3_6": statistics.median(step_ms[2:]),
+                    "peak_memory_bytes": s2t_peak,
+                    "wall_seconds": s2t_wall, "launches": s2t_launches},
+          "grad_check": grad_check(torch, EnhS2TTask, tcfg_path, init,
+                                   gbatch),
+          "nvidia_smi": smi})
+    if not (s2t_decode_launches["flash_attn_fwd"] > 0
+            and s2t_decode_launches["logmel_fwd"] > 0):
+        raise AssertionError(f"the joint decode launched "
+                             f"{s2t_decode_launches}")
+    if not first["wer"] <= jax_wer + S2T_WER_MARGIN:
+        raise AssertionError(f"joint WER {first['wer']} on the first {n_ref} "
+                             f"above the JAX package's {jax_wer} + "
+                             f"{S2T_WER_MARGIN}")
+    return s2t_decode_launches, s2t_want
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1153,8 +1631,7 @@ def run(torch, workdir: Path):
     from espnet_tpu_torch.ops.mel import mel_matrix
     from espnet_tpu_torch.tasks import asr_transducer
     from espnet_tpu_torch.tasks.abs_task import parse_triples
-    from espnet_tpu_torch.tasks.asr import (ASRTask, build_model,
-                                            build_model_from_file)
+    from espnet_tpu_torch.tasks.asr import ASRTask, build_model
     from espnet_tpu_torch.tasks.asr_transducer import ASRTransducerTask
     from espnet_tpu_torch.tools import rnnt_chain
     from espnet_tpu_torch.train.checkpoint import load_checkpoint
@@ -1746,7 +2223,7 @@ def run(torch, workdir: Path):
     _, batch = valid_if.collate_fn([valid_if.dataset[k] for k in
                                     valid_if.epoch_batches(0)[0][:GRAD_BATCH]])
     emit({"phase": "grad_check"} | grad_check(
-        torch, ASSET / "config.yaml", ASSET, build_model, batch))
+        torch, ASRTask, ASSET / "config.yaml", ASSET, batch))
 
     # 8. the transducer's decode: as main_path
     s2tt(speech, lengths)
@@ -1831,8 +2308,8 @@ def run(torch, workdir: Path):
         [tvalid_if.dataset[k]
          for k in tvalid_if.epoch_batches(0)[0][:GRAD_BATCH]])
     emit({"phase": "transducer_grad_check"}
-         | grad_check(torch, TRANSDUCER / "config.yaml", TRANSDUCER,
-                      asr_transducer.build_model, batch))
+         | grad_check(torch, ASRTransducerTask, TRANSDUCER / "config.yaml",
+                      TRANSDUCER, batch))
 
     # 11. the long-form model's training: as train_path, from the seed's
     # flax-default initialisation, over 3 epochs of the long recordings
@@ -1894,8 +2371,8 @@ def run(torch, workdir: Path):
     _, batch = ltrain_if.collate_fn(
         [ltrain_if.dataset[k] for k in ltrain_if.dataset.keys()[:2]])
     emit({"phase": "longform_grad_check"}
-         | grad_check(torch, lout / "config.yaml", lout / "checkpoint",
-                      build_model, batch))
+         | grad_check(torch, ASRTask, lout / "config.yaml",
+                      lout / "checkpoint", batch))
 
     # 13. the batch-decode CLI with the trained checkpoint over the
     # decode set, greedy CTC: one warm-up run, then the counted one; and
@@ -1921,8 +2398,8 @@ def run(torch, workdir: Path):
         dec_ds, dec_ds.keys(), LONG_BATCH))
     logprobs, greedy = {}, {}
     for dev in ("cuda", "cpu"):
-        m, _ = build_model_from_file(lout / "config.yaml",
-                                     lout / "checkpoint", dev)
+        m, _ = ASRTask.build_model_from_file(lout / "config.yaml",
+                                             lout / "checkpoint", dev)
         with torch.no_grad():
             enc, enc_lens = m.encode(torch.from_numpy(dspeech_np).to(dev),
                                      torch.from_numpy(dlens_np).long()
@@ -1998,6 +2475,10 @@ def run(torch, workdir: Path):
     # 15-18. streaming decode and the transducer CLI
     cli_batch_launches = streaming_phases(torch, _cuda, workdir, smi)
 
+    # 19-23. enhancement and the joint enhancement + ASR model
+    s2t_decode_launches, s2t_step_launches = enhancement_phases(
+        torch, _cuda, workdir, smi, speech_np, lengths_np, refs)
+
     print(smi, flush=True)
     # launches of each kernel per decode and per train step on the paths
     # that run it; "launches" is the count on its main path's run: the
@@ -2007,9 +2488,11 @@ def run(torch, workdir: Path):
     paths = {"decode": {"flagship": decode_launches,
                         "transducer": tdecode_launches,
                         "longform": ldecode_launches,
-                        "transducer_cli_batch": cli_batch_launches},
+                        "transducer_cli_batch": cli_batch_launches,
+                        "enh_s2t": s2t_decode_launches},
              "train_step": {"flagship": want, "transducer": twant,
-                            "longform": lwant}}
+                            "longform": lwant,
+                            "enh_s2t": s2t_step_launches}}
     main_runs = {"flash_attn_fwd": decode_launches,
                  "flash_attn_bwd": train_launches,
                  "logmel_fwd": decode_launches,

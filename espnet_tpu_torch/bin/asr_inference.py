@@ -41,7 +41,7 @@ from espnet_tpu_torch.decode.beam_search import (BeamSearchConfig,
                                                  batch_beam_search)
 from espnet_tpu_torch.decode.ctc_greedy import ctc_greedy_decode
 from espnet_tpu_torch.tasks.abs_task import parse_triples, shard_keys
-from espnet_tpu_torch.tasks.asr import build_model_from_file
+from espnet_tpu_torch.tasks.asr import ASRTask
 from espnet_tpu_torch.text.tokenizer import TokenIDConverter, build_tokenizer
 from espnet_tpu_torch.utils.config import parse_cli_overrides
 from espnet_tpu_torch.utils.device import resolve_device
@@ -74,7 +74,7 @@ class Speech2Text:
             raise NotImplementedError(
                 "time-synchronous decoding is not ported yet")
         self.device = resolve_device(device)
-        self.model, self.cfg = build_model_from_file(
+        self.model, self.cfg = ASRTask.build_model_from_file(
             asr_train_config, asr_model_file, self.device)
         self.converter = TokenIDConverter(list(self.model.token_list))
         self.tokenizer = build_tokenizer(

@@ -43,7 +43,7 @@ from espnet_tpu_torch.frontends.streaming import (StreamingFeatureExtractor,
                                                   subsample_window,
                                                   subsampled_valid_len)
 from espnet_tpu_torch.nn.streaming_encoder import INPUT_RATES
-from espnet_tpu_torch.tasks.asr import build_model_from_file
+from espnet_tpu_torch.tasks.asr import ASRTask
 from espnet_tpu_torch.text.tokenizer import TokenIDConverter, build_tokenizer
 from espnet_tpu_torch.utils.device import resolve_device
 
@@ -67,7 +67,7 @@ class Speech2TextStreaming:
                  ctc_weight: float = 0.3, nbest: int = 1,
                  decode_interval: int = 1, device=None):
         self.device = resolve_device(device)
-        self.model, self.cfg = build_model_from_file(
+        self.model, self.cfg = ASRTask.build_model_from_file(
             asr_train_config, asr_model_file, self.device)
         if self.cfg.get("encoder") != "streaming_conformer":
             raise ValueError(

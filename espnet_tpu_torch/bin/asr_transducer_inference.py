@@ -49,8 +49,7 @@ from espnet_tpu_torch.decode.transducer_search import (TransducerSearchConfig,
                                                        greedy_stream_step)
 from espnet_tpu_torch.frontends.streaming import subsample_window
 from espnet_tpu_torch.tasks.abs_task import parse_triples
-from espnet_tpu_torch.tasks.asr import build_model_from_file
-from espnet_tpu_torch.tasks.asr_transducer import build_model
+from espnet_tpu_torch.tasks.asr_transducer import ASRTransducerTask
 from espnet_tpu_torch.text.tokenizer import TokenIDConverter, build_tokenizer
 from espnet_tpu_torch.utils.config import parse_cli_overrides
 from espnet_tpu_torch.utils.device import resolve_device
@@ -63,8 +62,8 @@ class Speech2TextTransducer:
                  beam_size: int = 5, search_type: str = "default",
                  nbest: int = 1, score_norm: bool = True, device=None):
         self.device = resolve_device(device)
-        self.model, self.cfg = build_model_from_file(
-            train_config, model_file, self.device, build=build_model)
+        self.model, self.cfg = ASRTransducerTask.build_model_from_file(
+            train_config, model_file, self.device)
         self.converter = TokenIDConverter(list(self.model.token_list))
         self.tokenizer = build_tokenizer(self.cfg.get("token_type", "char"))
         self.config = TransducerSearchConfig(
@@ -100,8 +99,8 @@ class Speech2TextTransducerStreaming:
     def __init__(self, train_config=None, model_file=None,
                  max_sym_exp: int = 3, umax: int = 512, device=None):
         self.device = resolve_device(device)
-        self.model, self.cfg = build_model_from_file(
-            train_config, model_file, self.device, build=build_model)
+        self.model, self.cfg = ASRTransducerTask.build_model_from_file(
+            train_config, model_file, self.device)
         if self.cfg.get("encoder") != "streaming_conformer":
             raise ValueError("streaming transducer requires "
                              "encoder: streaming_conformer")

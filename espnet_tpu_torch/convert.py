@@ -2,29 +2,39 @@
 
 Reads the npz format of espnet_tpu/train/checkpoint.py (keys are the
 parameter-tree path joined by "/", f16 stored and read back as f32) with
-numpy only, and maps flax layouts onto torch's:
+numpy only. The layout of each parameter is decided by the torch module
+that holds it, not by the flax array's shape (a pointwise kernel
+(1, in, out) and a transposed convolution's (K, in, out) look alike):
 
-- Dense kernel (in, out)            -> Linear weight (out, in)
-- 2-D conv kernel (kt, kf, C, O)     -> Conv2d weight (O, C, kt, kf)
-- DepthwiseConv1d kernel (K, 1, C)   -> grouped Conv1d weight (C, 1, K)
-- LayerNorm ``scale``                -> ``weight``
-- Embed ``embedding`` (V, D)         -> Embedding ``weight``
-- ``pos_bias_u``, ``pos_bias_v``     -> parameters of the same (H, dk) shape
+- Linear weight (out, in)              <- Dense kernel (in, out)
+- Pointwise weight (out, in)           <- Conv(out, (1,)) kernel (1, in, out)
+- Conv1d, DepthwiseConv1d weight
+  (out, in / groups, K)                <- Conv kernel (K, in / groups, out)
+- ConvTranspose1d weight (in, out, K)  <- ConvTranspose kernel (K, in, out),
+  reversed in K (flax runs it unflipped over the dilated input)
+- Conv2d weight (O, C, kt, kf)         <- 2-D conv kernel (kt, kf, C, O)
+- LayerNorm ``weight``                 <- ``scale``
+- Embedding ``weight`` (V, D)          <- Embed ``embedding``
+- every other parameter (biases, ``pos_bias_u``, PReLU's 0-d
+  ``negative_slope``)                  <- the array of the same name as it is
 
 Module paths map one to one, except that flax's ``layerN`` is torch's
 ``layers.N``. Unused or missing keys raise. ``state_dict_to_flax`` is the
 inverse: a model's parameters as the flat flax dict, for checkpoints that
-the JAX package reads.
+the JAX package reads. ``compose`` roots several flat dicts under
+submodules, so that one model takes the weights of several assets.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Callable, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from espnet_tpu_torch.nn.convolution import DepthwiseConv1d, Pointwise
 
 
 def read_npz(path) -> Dict[str, np.ndarray]:
@@ -34,69 +44,80 @@ def read_npz(path) -> Dict[str, np.ndarray]:
                     else z[k]) for k in z.files}
 
 
-def _torch_entry(path: str, value: np.ndarray):
-    parts = path.split("/")
-    if parts[0] == "params":
-        parts = parts[1:]
-    leaf = parts[-1]
-    mods = [re.sub(r"^layer(\d+)$", r"layers.\1", p) for p in parts[:-1]]
-    if leaf == "kernel":
-        if value.ndim == 2:
-            value = value.T
-        elif value.ndim == 4:
-            value = value.transpose(3, 2, 0, 1)
-        elif value.ndim == 3 and value.shape[1] == 1:
-            value = value.transpose(2, 1, 0)
-        else:
-            raise ValueError(f"{path}: unexpected kernel shape {value.shape}")
-        leaf = "weight"
-    elif leaf in ("scale", "embedding"):
-        leaf = "weight"
-    return ".".join(mods + [leaf]), np.ascontiguousarray(value)
+def _same(v):
+    return v
 
 
-def flax_to_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    out = {}
-    for path, value in flat.items():
-        name, value = _torch_entry(path, value)
-        out[name] = torch.from_numpy(value)
-    return out
+def _t(v):
+    return v.T
+
+
+def _rev3(v):
+    return v.transpose(2, 1, 0)
+
+
+# (module types, flax leaf, flax -> torch, torch -> flax) of ``weight``;
+# the first match decides (Pointwise before Linear)
+_WEIGHT_LAYOUTS = (
+    ((nn.LayerNorm,), "scale", _same, _same),
+    ((nn.Embedding,), "embedding", _same, _same),
+    ((Pointwise,), "kernel", lambda v: v[0].T, lambda v: v.T[None]),
+    ((nn.Linear,), "kernel", _t, _t),
+    ((nn.Conv1d, DepthwiseConv1d), "kernel", _rev3, _rev3),
+    ((nn.ConvTranspose1d,), "kernel", lambda v: v[::-1].transpose(1, 2, 0),
+     lambda v: v.transpose(2, 0, 1)[::-1]),
+    ((nn.Conv2d,), "kernel", lambda v: v.transpose(3, 2, 0, 1),
+     lambda v: v.transpose(2, 3, 1, 0)),
+)
+
+
+def _layout(module: nn.Module, name: str) -> Tuple[str, Callable, Callable]:
+    """-> (flax leaf name, flax -> torch, torch -> flax) of one parameter."""
+    if name != "weight":
+        return name, _same, _same
+    for types, leaf, to_torch, to_flax in _WEIGHT_LAYOUTS:
+        if isinstance(module, types):
+            return leaf, to_torch, to_flax
+    raise ValueError(f"{type(module).__name__}.weight: no flax layout")
+
+
+def _params(model: nn.Module) -> Iterator[Tuple[str, str, nn.Module, str]]:
+    """(flax key, torch name, module, parameter name) of every parameter."""
+    for mod_name, module in model.named_modules():
+        path = re.sub(r"(^|\.)layers\.(\d+)", r"\1layer\2", mod_name)
+        for name, _ in module.named_parameters(recurse=False):
+            leaf = _layout(module, name)[0]
+            key = "/".join(["params"] + ([path.replace(".", "/")] if path
+                                         else []) + [leaf])
+            yield key, f"{mod_name}.{name}" if mod_name else name, module, name
 
 
 def load_flax_params(model: torch.nn.Module, flat: Dict[str, np.ndarray]):
     """Load a flat flax parameter dict into ``model``; raise on keys that
     are unused or missing, and on shapes that differ."""
-    state = flax_to_state_dict(flat)
+    flat = {k if k.startswith("params/") else f"params/{k}": v
+            for k, v in flat.items()}
     own = model.state_dict()
-    missing = sorted(set(own) - set(state))
-    unused = sorted(set(state) - set(own))
+    entries = {key: (tname, module, name)
+               for key, tname, module, name in _params(model)}
+    missing = sorted(set(entries) - set(flat))
+    unused = sorted(set(flat) - set(entries))
     if missing or unused:
         raise KeyError(f"parameter mismatch: missing {missing[:8]}, "
                        f"unused {unused[:8]}")
-    for name, value in state.items():
-        if own[name].shape != value.shape:
-            raise ValueError(f"{name}: shape {tuple(value.shape)} != "
-                             f"{tuple(own[name].shape)}")
+    state = {}
+    for key, (tname, module, name) in entries.items():
+        # np.array, not ascontiguousarray, which makes a 0-d array 1-d
+        value = np.array(_layout(module, name)[1](np.asarray(flat[key])),
+                         order="C")
+        if own[tname].shape != value.shape:
+            raise ValueError(f"{key} -> {tname}: shape "
+                             f"{tuple(value.shape)} != "
+                             f"{tuple(own[tname].shape)}")
+        state[tname] = torch.from_numpy(value)
+    # strict: a persistent buffer, which no flax tree holds, raises too
     model.load_state_dict(state)
     return model
-
-
-def _flax_entry(module: nn.Module, name: str, value: np.ndarray):
-    """Leaf name and layout of one torch parameter in the flax tree."""
-    if name != "weight":
-        return name, value
-    if isinstance(module, nn.LayerNorm):
-        return "scale", value
-    if isinstance(module, nn.Embedding):
-        return "embedding", value
-    if value.ndim == 2:
-        return "kernel", value.T
-    if value.ndim == 4:
-        return "kernel", value.transpose(2, 3, 1, 0)
-    if value.ndim == 3 and value.shape[1] == 1:
-        return "kernel", value.transpose(2, 1, 0)
-    raise ValueError(f"{type(module).__name__}.weight: unexpected shape "
-                     f"{value.shape}")
 
 
 def state_dict_to_flax(model: nn.Module,
@@ -105,15 +126,21 @@ def state_dict_to_flax(model: nn.Module,
     with ``grad``, their gradients) in the flax tree's naming and layouts
     (f32 numpy)."""
     out = {}
-    for mod_name, module in model.named_modules():
-        path = re.sub(r"(^|\.)layers\.(\d+)", r"\1layer\2", mod_name)
-        for name, param in module.named_parameters(recurse=False):
-            value = param.grad if grad else param
-            leaf, value = _flax_entry(module, name,
-                                      value.detach().cpu().numpy())
-            key = "/".join(["params"] + ([path.replace(".", "/")] if path
-                                         else []) + [leaf])
-            out[key] = np.ascontiguousarray(value)
+    for key, _, module, name in _params(model):
+        param = getattr(module, name)
+        value = (param.grad if grad else param).detach().cpu().numpy()
+        out[key] = np.array(_layout(module, name)[2](value), order="C")
+    return out
+
+
+def compose(**parts: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """compose(enh=flat1, s2t=flat2) -> one flat dict with flat1's
+    "params/x" at "params/enh/x" and flat2's at "params/s2t/x"."""
+    out = {}
+    for root, flat in parts.items():
+        for key, value in flat.items():
+            rest = key[len("params/"):] if key.startswith("params/") else key
+            out[f"params/{root}/{rest}"] = value
     return out
 
 

@@ -1,7 +1,8 @@
 """Kaldi-style file IO (counterpart of espnet_tpu/data/fileio.py): text
 maps, number sequences, WAV read/write with the standard library and
-numpy (PCM 8/16/32-bit and IEEE float), without soundfile, and the
-nested text-map writer of the decode outputs."""
+numpy (PCM 8/16/32-bit and IEEE float), without soundfile, the wav.scp
+writer of the separated speech, and the nested text-map writer of the
+decode outputs."""
 
 from __future__ import annotations
 
@@ -104,6 +105,32 @@ class SoundScpReader:
 
     def __len__(self):
         return len(self.data)
+
+
+class SoundScpWriter:
+    """Writes ``<outdir>/<key>.wav`` (16-bit) and a wav.scp line for each
+    ``writer[key] = (rate, array)``."""
+
+    def __init__(self, outdir, scpfile):
+        self.dir = Path(outdir)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        Path(scpfile).parent.mkdir(parents=True, exist_ok=True)
+        self.fscp = open(scpfile, "w", encoding="utf-8")
+
+    def __setitem__(self, key: str, value: Tuple[int, np.ndarray]):
+        rate, arr = value
+        p = self.dir / f"{key}.wav"
+        write_wav(p, rate, arr)
+        self.fscp.write(f"{key} {p}\n")
+
+    def close(self):
+        self.fscp.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        self.close()
 
 
 class DatadirWriter:

@@ -254,6 +254,81 @@ class SynthSpeechCorpus:
                     ft.write(f"{uid} {text}\n")
 
 
+class SynthMixCorpus:
+    """Deterministic 2-speaker mixtures (the JAX package's corpus, sample
+    for sample): two SynthSpeechCorpus utterances of different speakers,
+    cropped or zero-padded to a fixed ``seconds`` window, speaker 2
+    scaled to a uniform [-2.5, 2.5] dB SIR against speaker 1, and all
+    three rescaled together when the mixture's peak passes 0.99."""
+
+    def __init__(self, seconds: float = 4.0, **kw):
+        self.base = SynthSpeechCorpus(**kw)
+        self.n_samples = int(seconds * FS)
+
+    def _fit(self, w: np.ndarray, rng) -> np.ndarray:
+        n = self.n_samples
+        if len(w) >= n:
+            off = rng.randint(len(w) - n + 1)
+            return w[off:off + n]
+        out = np.zeros((n,), np.float32)
+        off = rng.randint(n - len(w) + 1)
+        out[off:off + len(w)] = w
+        return out
+
+    def mixture(self, split: str, index: int):
+        """-> (mix, ref1, ref2), float32 (n_samples,) each."""
+        rng = self.base._rng_for(f"mix-{split}", index)
+        i1 = int(rng.randint(10 ** 6))
+        w1, _, s1 = self.base.utterance(f"mixsrc-{split}", i1)
+        for _ in range(50):
+            i2 = int(rng.randint(10 ** 6))
+            w2, _, s2 = self.base.utterance(f"mixsrc-{split}",
+                                            10 ** 6 + i2)
+            if s2 != s1:
+                break
+        r1 = self._fit(np.asarray(w1, np.float32), rng)
+        r2 = self._fit(np.asarray(w2, np.float32), rng)
+        sir_db = rng.uniform(-2.5, 2.5)
+        p1 = np.mean(r1 ** 2) + 1e-10
+        p2 = np.mean(r2 ** 2) + 1e-10
+        r2 = r2 * np.sqrt(p1 / p2 * 10 ** (-sir_db / 10.0))
+        mix = r1 + r2
+        peak = np.abs(mix).max()
+        if peak > 0.99:
+            g = 0.99 / peak
+            mix, r1, r2 = mix * g, r1 * g, r2 * g
+        return (mix.astype(np.float32), r1.astype(np.float32),
+                r2.astype(np.float32))
+
+    def materialize(self, root, n_train: int = 500, n_valid: int = 50,
+                    n_test: int = 50) -> None:
+        """Write root/{train,valid,test}: wav.scp (the mixtures),
+        spk1.scp, spk2.scp (16-bit wavs) and speech_mix_shape, utterance
+        ids ``{split}_{index:05d}``; a split of 0 is skipped."""
+        from pathlib import Path
+
+        from espnet_tpu_torch.data.fileio import write_wav
+        for split, n in (("train", n_train), ("valid", n_valid),
+                         ("test", n_test)):
+            if n <= 0:
+                continue
+            d = Path(root) / split
+            (d / "wav").mkdir(parents=True, exist_ok=True)
+            with open(d / "wav.scp", "w") as fm, \
+                    open(d / "spk1.scp", "w") as f1, \
+                    open(d / "spk2.scp", "w") as f2, \
+                    open(d / "speech_mix_shape", "w") as fs:
+                for i in range(n):
+                    uid = f"{split}_{i:05d}"
+                    for tag, w, f in zip(("mix", "s1", "s2"),
+                                         self.mixture(split, i),
+                                         (fm, f1, f2)):
+                        p = d / "wav" / f"{uid}_{tag}.wav"
+                        write_wav(p, FS, w)
+                        f.write(f"{uid} {p}\n")
+                    fs.write(f"{uid} {self.n_samples}\n")
+
+
 def concat_data_dir(src, dst, min_samples: int) -> List[Tuple[str, int, str]]:
     """Write a Kaldi-style data dir ``dst`` (wav.scp, text, 16-bit wavs)
     of long recordings: each joins consecutive utterances of ``src`` (in

@@ -11,7 +11,11 @@ FFT per frame with a sparse mel sum, bound by the bytes of its wave and
 log-mel; so besides the JAX package's rule (Hann window of n_fft samples,
 centred, hop | n_fft, the default mel scale, natural log) eligibility asks
 what the FFT takes: a power-of-two n_fft from 64 to 2048 and at most 128
-mel bins. Otherwise the frontend takes the plain STFT and log-mel ops.
+mel bins. A wave that needs a gradient (the joint enhancement + ASR
+model trains through its frontend) still takes the kernel, whose
+backward is its plain version's. Otherwise the frontend takes the plain
+STFT and log-mel ops. A float64 wave stays float64 (on the CPU, through
+the plain versions: the float64 reference of a grad check).
 """
 
 from __future__ import annotations
@@ -57,9 +61,10 @@ class DefaultFrontend:
     def __call__(self, speech: torch.Tensor, lengths: torch.Tensor):
         """(B, S) float wave, (B,) int -> (B, T, n_mels), (B,) lengths."""
         if self._fused_eligible():
-            feats = fused_logmel(speech.float(), fs=self.fs, n_fft=self.n_fft,
-                                 hop_length=self.hop_length,
-                                 n_mels=self.n_mels)
+            feats = fused_logmel(
+                speech if speech.dtype == torch.float64 else speech.float(),
+                fs=self.fs, n_fft=self.n_fft, hop_length=self.hop_length,
+                n_mels=self.n_mels)
             olens = (lengths + 2 * (self.n_fft // 2)
                      - self.n_fft) // self.hop_length + 1
         else:

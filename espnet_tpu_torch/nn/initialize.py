@@ -1,9 +1,10 @@
 """Parameter initialisation for training from scratch, following flax's
 defaults (the JAX package's ``model.init``) rather than torch's:
 
-- Dense, Conv and DepthwiseConv1d kernels: lecun_normal, a normal
-  truncated at two standard deviations and rescaled to variance
-  1 / fan_in; zero biases;
+- Dense, Conv, ConvTranspose and DepthwiseConv1d kernels: lecun_normal,
+  a normal truncated at two standard deviations and rescaled to variance
+  1 / fan_in (flax's fan_in: every kernel axis but the output
+  features'); zero biases;
 - Embed: flax's default, a normal of variance 1 / features;
 - ``pos_bias_u`` and ``pos_bias_v``: xavier_uniform;
 - the hidden kernels of an LSTM cell (hi, hf, hg, ho): orthogonal, as
@@ -29,10 +30,13 @@ from espnet_tpu_torch.nn.convolution import DepthwiseConv1d
 TRUNC_STD = 0.87962566103423978
 
 
-def lecun_normal_(w: torch.Tensor, generator: torch.Generator):
+def lecun_normal_(w: torch.Tensor, generator: torch.Generator,
+                  fan_in: int | None = None):
     """Truncated normal on [-2, 2] standard deviations, variance
-    1 / fan_in, fan_in = in channels x receptive field (torch layouts)."""
-    fan_in = w[0].numel()
+    1 / fan_in, fan_in = in channels x receptive field (by default read
+    from torch's (out, in, ...) layouts)."""
+    if fan_in is None:
+        fan_in = w[0].numel()
     std = math.sqrt(1.0 / fan_in) / TRUNC_STD
     with torch.no_grad():
         # inverse CDF of the unit normal on a uniform draw in [Phi(-2), Phi(2)]
@@ -51,8 +55,14 @@ def init_like_flax(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-initialise every parameter of ``model`` in place."""
     with torch.no_grad():
         for module in model.modules():
-            if isinstance(module, (nn.Linear, nn.Conv2d, DepthwiseConv1d)):
-                lecun_normal_(module.weight, generator)
+            if isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d,
+                                   DepthwiseConv1d, nn.ConvTranspose1d)):
+                w = module.weight
+                # a transposed convolution's weight is (in, out, K)
+                lecun_normal_(w, generator,
+                              w.shape[0] * w.shape[2]
+                              if isinstance(module, nn.ConvTranspose1d)
+                              else None)
                 if module.bias is not None:
                     module.bias.zero_()
             elif isinstance(module, nn.Embedding):

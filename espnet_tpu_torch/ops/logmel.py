@@ -11,9 +11,12 @@ built here: the window and the twiddles exp(-2 pi i k / n_fft) in float64
 rounded to fp32 (``fft_tables``), and the mel filterbank packed per mel bin
 as (first bin, count, offset) and the weights (``pack_mel``), cached per
 device. On a CPU tensor it runs ``fused_logmel_plain``: centred Hann STFT
-power by hop-segment accumulation, then log(max(power @ mel, 1e-10)). The
-kernel has no backward, as the Pallas kernel has no VJP: on the card a
-wave that needs a gradient is refused rather than given a detached result.
+power by hop-segment accumulation, then log(max(power @ mel, 1e-10)).
+Where the wave needs a gradient (the joint enhancement + ASR model trains
+through its frontend) the kernel runs as a ``torch.autograd.Function``
+whose backward differentiates the plain version, recomputed from the
+saved wave: the Pallas kernel has no VJP, and the JAX package
+differentiates XLA's STFT there.
 """
 
 from __future__ import annotations
@@ -98,9 +101,11 @@ def fused_logmel(wave, *, fs: int = 16000, n_fft: int = 512,
                                   hop_length=hop_length, n_mels=n_mels)
     if wave.device.type != "cuda":
         raise RuntimeError(f"fused_logmel: no kernel for {wave.device}")
-    if torch.is_grad_enabled() and wave.requires_grad:
-        raise RuntimeError("fused_logmel: the kernel has no backward; the "
-                           "wave must not require a gradient")
+    return _FusedLogmel.apply(wave, fs, n_fft, hop_length, n_mels)
+
+
+def _launch(wave, fs: int, n_fft: int, hop_length: int, n_mels: int):
+    """``logmel_fwd`` on a CUDA wave, counted."""
     if wave.dim() != 2 or wave.dtype != torch.float32:
         raise ValueError(f"fused_logmel: need a (B, S) float32 wave, got "
                          f"{tuple(wave.shape)} {wave.dtype}")
@@ -123,3 +128,24 @@ def fused_logmel(wave, *, fs: int = 16000, n_fft: int = 512,
     _cuda.check(err, "logmel_fwd")
     _cuda.LAUNCHES["logmel_fwd"] += 1
     return out
+
+
+class _FusedLogmel(torch.autograd.Function):
+    """The kernel's forward; the backward is the plain version's,
+    recomputed from the saved wave."""
+
+    @staticmethod
+    def forward(ctx, wave, fs, n_fft, hop_length, n_mels):
+        ctx.conf = dict(fs=fs, n_fft=n_fft, hop_length=hop_length,
+                        n_mels=n_mels)
+        ctx.save_for_backward(wave)
+        return _launch(wave, fs, n_fft, hop_length, n_mels)
+
+    @staticmethod
+    def backward(ctx, grad):
+        wave, = ctx.saved_tensors
+        with torch.enable_grad():
+            x = wave.detach().requires_grad_()
+            out = fused_logmel_plain(x, **ctx.conf)
+            gx, = torch.autograd.grad(out, x, grad)
+        return gx, None, None, None, None

@@ -75,9 +75,12 @@ def log_mel(power: torch.Tensor, *, fs: int = 16000, n_fft: int = 512,
             n_mels: int = 80, fmin: float = 0.0, fmax: float | None = None,
             htk: bool = False, log_base: float | None = None
             ) -> torch.Tensor:
-    """(B, T, n_freq) power spectrum -> (B, T, n_mels) log-mel."""
-    w = mel_matrix(fs, n_fft, n_mels, fmin, fmax, htk, str(power.device))
-    out = torch.log(torch.clamp(power.float() @ w, min=1e-10))
+    """(B, T, n_freq) power spectrum -> (B, T, n_mels) log-mel, in float32
+    (float64 for a float64 power)."""
+    power = power.double() if power.dtype == torch.float64 else power.float()
+    w = mel_matrix(fs, n_fft, n_mels, fmin, fmax, htk,
+                   str(power.device)).to(power.dtype)
+    out = torch.log(torch.clamp(power @ w, min=1e-10))
     if log_base is not None:
         out = out / np.log(log_base)
     return out

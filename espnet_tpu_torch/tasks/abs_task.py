@@ -10,10 +10,12 @@ builds the iterators, initialises the model as flax would, loads
 
 Options the port has not ported raise NotImplementedError when they are
 on: ``collect_stats``, ``train_dtype`` other than fp32, ``use_mesh`` and
-``fsdp``, ``launch_conf``, ``steps_per_dispatch`` > 1, ``accum_grad`` > 1
-and ``detect_anomaly``. Those that only observe a run (tensorboard,
-wandb, attention plots, the time breakdown, orbax) are ignored, with a
-log line when they are on.
+``fsdp``, ``launch_conf``, ``accum_grad`` > 1 and ``detect_anomaly``.
+Those that only observe a run (tensorboard, wandb, attention plots, the
+time breakdown, orbax) are ignored, with a log line when they are on.
+``steps_per_dispatch`` > 1 only groups K same-shape steps into one
+device program in the JAX package (its trainer scans the same train step
+over them): the port runs them one step at a time, with a log line.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ from espnet_tpu_torch.nn.initialize import init_like_flax
 from espnet_tpu_torch.train.checkpoint import load_checkpoint
 from espnet_tpu_torch.train.optim import build_optimizer
 from espnet_tpu_torch.train.trainer import Trainer
-from espnet_tpu_torch.utils.config import dump_yaml, resolve_config
+from espnet_tpu_torch.utils.config import (dump_yaml, load_yaml,
+                                           resolve_config)
 from espnet_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -77,7 +80,6 @@ UNPORTED = {
     "use_mesh": lambda v: bool(v),
     "fsdp": lambda v: bool(v),
     "launch_conf": lambda v: bool(v),
-    "steps_per_dispatch": lambda v: v not in (None, 1),
     "detect_anomaly": lambda v: bool(v),
     "batch_type": lambda v: v in ("catbel", "catpow", "catpow_balance"),
 }
@@ -112,6 +114,40 @@ def shard_keys(keys, job_id: int, num_jobs: int) -> List[str]:
     return list(keys[start:start + base + (1 if job_id < rem else 0)])
 
 
+# files that a packed model dir (the committed assets) holds beside its
+# config, in place of the paths the config names
+PACKED_FILES = (("token_list", "tokens.txt"),
+                ("stats_file", "feats_stats.npz"))
+
+
+def load_packed_config(config_file) -> Dict[str, Any]:
+    """The config, with ``token_list`` and ``stats_file`` pointed at
+    ``tokens.txt`` and ``feats_stats.npz`` beside it where those exist,
+    as the bench does: the configured paths name a training work
+    directory that may belong to another checkout. Without a local file
+    the configured path stands."""
+    cfg = load_yaml(config_file)
+    here = Path(config_file).parent
+    for key, fname in PACKED_FILES:
+        if (here / fname).exists():
+            cfg[key] = str(here / fname)
+    return cfg
+
+
+def model_from_file(build, config_file, model_file, device):
+    """-> (``build(cfg)`` with the weights of ``model_file``, on ``device``
+    in eval mode, and cfg). ``model_file`` is a checkpoint directory of
+    the trainer, a directory holding ``params_f16.npz``, or an npz file;
+    None initialises as flax would, from seed 0."""
+    cfg = load_packed_config(config_file)
+    model = build(cfg)
+    if model_file is None:
+        init_like_flax(model, torch.Generator().manual_seed(0))
+    else:
+        convert.load_flax_params(model, load_checkpoint(model_file)[0])
+    return model.to(device).eval(), cfg
+
+
 class AbsTask:
     name: str = "abs"
 
@@ -130,6 +166,13 @@ class AbsTask:
 
     # ---- shared machinery -----------------------------------------
     @classmethod
+    def build_model_from_file(cls, config_file, model_file, device=None):
+        """-> (the task's model with the weights of ``model_file``, in eval
+        mode on ``device`` (None: the card), and its config)."""
+        return model_from_file(cls.build_model, config_file, model_file,
+                               resolve_device(device))
+
+    @classmethod
     def default_config(cls) -> Dict[str, Any]:
         return {**COMMON_DEFAULTS, **cls.task_defaults()}
 
@@ -141,6 +184,10 @@ class AbsTask:
         ignored = [k for k in IGNORED if cfg.get(k)]
         if ignored:
             logger.info("ignored (they only observe a run): %s", ignored)
+        if cfg.get("steps_per_dispatch") not in (None, 1):
+            logger.info("steps_per_dispatch %s: run one step at a time (it "
+                        "only groups the JAX package's steps into one "
+                        "dispatch)", cfg["steps_per_dispatch"])
 
     @classmethod
     def build_dataset(cls, cfg, train: bool) -> ESPnetDataset:

@@ -5,7 +5,8 @@ Only what the flagship config names is built: the default frontend,
 SpecAug, GlobalMVN, a conformer (or streaming conformer) encoder and a
 transformer decoder. Any other choice raises NotImplementedError. The
 model comes out in training mode (dropout and SpecAug on);
-``build_model_from_file`` puts it in eval mode for decoding. ``ASRTask``
+``ASRTask.build_model_from_file`` (AbsTask's) puts it in eval mode for
+decoding. ``ASRTask``
 adds the task's defaults and its preprocessor to the training spine of
 ``tasks/abs_task.py``.
 """
@@ -13,17 +14,14 @@ adds the task's defaults and its preprocessor to the training spine of
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Callable, Dict
+from typing import Any, Dict
 
 import torch
 
-from espnet_tpu_torch import convert
 from espnet_tpu_torch.data.preprocessor import CommonPreprocessor
 from espnet_tpu_torch.frontends.default import DefaultFrontend, GlobalMVN
 from espnet_tpu_torch.models.asr import ENCODER_CLASSES, ASRModel
 from espnet_tpu_torch.tasks.abs_task import AbsTask
-from espnet_tpu_torch.train.checkpoint import load_checkpoint
-from espnet_tpu_torch.utils.config import load_yaml
 
 
 def read_token_list(token_list) -> list:
@@ -94,30 +92,6 @@ def build_model(cfg: Dict[str, Any]) -> ASRModel:
         lsm_weight=mc.get("lsm_weight", 0.0),
         length_normalized_loss=mc.get("length_normalized_loss", False),
         encoder=encoder)
-
-
-def build_model_from_file(config_file, model_file, device,
-                          build: Callable = build_model):
-    """-> (``build(cfg)`` with the weights of ``model_file``, on ``device``
-    in eval mode, and cfg).
-
-    ``tokens.txt`` and ``feats_stats.npz`` next to the config (the layout
-    of the committed assets) replace the config's token_list and
-    stats_file, as the bench does: the configured paths name a training
-    work directory that may belong to another checkout. Without a local
-    file the configured path stands. ``model_file`` is a checkpoint
-    directory of the trainer, a directory holding ``params_f16.npz``, or
-    an npz file.
-    """
-    cfg = load_yaml(config_file)
-    here = Path(config_file).parent
-    for key, fname in (("token_list", "tokens.txt"),
-                       ("stats_file", "feats_stats.npz")):
-        if (here / fname).exists():
-            cfg[key] = str(here / fname)
-    model = build(cfg)
-    convert.load_flax_params(model, load_checkpoint(model_file)[0])
-    return model.to(device).eval(), cfg
 
 
 class ASRTask(AbsTask):

@@ -55,10 +55,11 @@ def run_leg(torch, state: Path, batch, leg: str, dev: str, signs):
     the forward, [(name, grad)] in the backward's order, {param: grad}).
     The card leg notes its ReLU sides, the other legs take them."""
     from espnet_tpu_torch import convert
-    from espnet_tpu_torch.tasks.asr import build_model_from_file
+    from espnet_tpu_torch.tasks.asr import ASRTask
     from espnet_tpu_torch.tools import grad_pin
     from espnet_tpu_torch.train.trainer import to_device
-    model, _ = build_model_from_file(state / "config.yaml", state, dev)
+    model, _ = ASRTask.build_model_from_file(state / "config.yaml", state,
+                                             dev)
     if leg == "float64":
         grad_pin.to_float64(model)
     grad_pin.pin_relus(grad_pin.relu_inputs(model), signs,

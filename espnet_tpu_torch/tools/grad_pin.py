@@ -8,8 +8,10 @@ one backward against another lets one leg note the side of every ReLU
 input (``pin_relus`` with no ``moved``) and moves the other legs'
 pre-activations onto those sides (``take_side``), by no more than their
 rounding: MOVE_TOL bounds each module's largest move, relative to the
-module's largest |pre-activation|. ``to_float64`` makes a model the
-float64 reference of the fp32 legs.
+module's largest |pre-activation|. ``pin_estimates`` gives a joint
+model's ASR branch the same separated wave on every leg, and
+``pin_attention`` every rel-pos self-attention the same inputs.
+``to_float64`` makes a model the float64 reference of the fp32 legs.
 
 chip_smoke.py's grad_check, tools/grad_drift.py and the tests use these.
 """
@@ -19,6 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from espnet_tpu_torch.models.enh.separators import TCNBlock, TCNSeparator
+from espnet_tpu_torch.nn.attention import RelPositionMultiHeadedAttention
 from espnet_tpu_torch.nn.subsampling import Conv2dSubsampling
 from espnet_tpu_torch.nn.transformer import PositionwiseFeedForward
 
@@ -30,14 +34,25 @@ MOVE_TOL = 1e-5
 
 
 def relu_inputs(model) -> dict:
-    """The modules whose outputs go into a ReLU: the subsampling's two
-    convolutions and the first linear of each ReLU feed-forward."""
+    """The modules whose outputs go into a ReLU or a PReLU (a kink at 0
+    too): the subsampling's two convolutions, the first linear of each
+    ReLU feed-forward, and in the TCN separator the 1x1 and depthwise
+    convolutions of each block, the last block (its output goes into the
+    PReLU before the masks) and the mask convolution of ReLU masks."""
     out = {}
     for name, m in model.named_modules():
         if isinstance(m, Conv2dSubsampling):
             out.update({f"{name}.conv0": m.conv0, f"{name}.conv1": m.conv1})
         elif isinstance(m, PositionwiseFeedForward) and m.act is F.relu:
             out[f"{name}.w_1"] = m.w_1
+        elif isinstance(m, TCNBlock):
+            out.update({f"{name}.conv1x1": m.conv1x1,
+                        f"{name}.dconv": m.dconv})
+        elif isinstance(m, TCNSeparator):
+            last = m.blocks[-1]
+            out[f"{name}.{last}"] = getattr(m, last)
+            if m.nonlinear == "relu":
+                out[f"{name}.mask_out"] = m.mask_out
     return out
 
 
@@ -77,11 +92,100 @@ def pin_relus(modules: dict, signs: dict, moved: dict | None = None) -> list:
             for name, mod in modules.items()]
 
 
+class _Restore:
+    """A handle whose remove() takes an instance's own attribute away
+    again, leaving its class's."""
+
+    def __init__(self, obj, name):
+        self.obj, self.name = obj, name
+
+    def remove(self):
+        delattr(self.obj, self.name)
+
+
+def _pinned(key: str, tensors, store: dict, moved: dict | None) -> list:
+    """``tensors`` pinned under ``key``: with ``moved`` None noted in
+    ``store`` and returned; else each replaced by its noted values, with
+    an identity gradient, and where that moved an entry ``moved[key]``
+    set to [entries moved, the largest move, that over the largest
+    |entry|]. Entries at the padding's -1e9 bias are left out of the
+    move and the scale."""
+    if moved is None:
+        store[key] = [t.detach().cpu() for t in tensors]
+        return list(tensors)
+    out, n_moved, largest, scale = [], 0, 0.0, 0.0
+    for t, want in zip(tensors, store[key]):
+        want = want.to(t.device, t.dtype)
+        real = want > -1e8
+        diff = (t.detach() - want).abs() * real
+        n_moved += int((diff > 0).sum())
+        largest = max(largest, float(diff.max()))
+        scale = max(scale, float((want.abs() * real).max()))
+        out.append(want + (t - t.detach()))
+    if n_moved:
+        moved[key] = [n_moved, largest, largest / max(scale, 1e-30)]
+    return out
+
+
+def pin_estimates(model, store: dict, moved: dict | None = None) -> list:
+    """A joint enhancement + ASR model's separated estimates, pinned as
+    the ReLU inputs are: with ``moved`` None the leg notes them in
+    ``store``; else the leg's own estimates are replaced by the noted
+    ones (their values, with an identity gradient), so the ASR branch of
+    every leg reads the same wave, and where that moved a sample
+    ``moved["enh.estimates"]`` is [samples moved, the largest move, that
+    over the estimates' largest |entry|]. A model without ``enh`` gets no
+    pin. Returns the handles."""
+    enh = getattr(model, "enh", None)
+    if enh is None:
+        return []
+    own = enh.forward_enhance
+
+    def enhance(speech, lengths):
+        ests, olens, masks = own(speech, lengths)
+        return (_pinned("enh.estimates", ests, store, moved), olens,
+                masks)
+
+    enh.forward_enhance = enhance
+    return [_Restore(enh, "forward_enhance")]
+
+
+def pin_attention(model, store: dict, moved: dict | None = None) -> list:
+    """Each rel-pos self-attention's kernel inputs (q + u, k, v and the
+    positional bias), pinned as the estimates are, under
+    "<module>.kernel_inputs". A trained Conformer's attention scores reach
+    ~1e3 and most rows put > 0.99 on one key: there the gradients of q
+    and k turn the fp32 rounding of the forward's projections (~1e-7 of
+    ~1e3) into ~1e-3 of their own scale, so two legs that differ only
+    there disagree by more than the check's tolerance. With one set of
+    inputs each leg's attention backward is compared on its own.
+    Returns the handles."""
+    handles = []
+    for name, mod in model.named_modules():
+        if isinstance(mod, RelPositionMultiHeadedAttention):
+            own = mod.kernel_inputs
+
+            def inputs(*args, own=own, key=f"{name}.kernel_inputs"):
+                *tensors, sm_scale = own(*args)
+                return (*_pinned(key, tensors, store, moved), sm_scale)
+
+            mod.kernel_inputs = inputs
+            handles.append(_Restore(mod, "kernel_inputs"))
+    return handles
+
+
+def _double(x):
+    return x.double() if torch.is_tensor(x) and x.is_floating_point() else x
+
+
 def to_float64(model):
-    """``model`` in float64, its encoder taking the fp32 features of the
-    frontend (which the log-mel computes in fp32) as float64: a
+    """``model`` in float64, taking its float inputs as float64 (the
+    frontend then computes its STFT and log-mel in float64 too): a
     reference for the fp32 legs."""
     model.double()
-    model.encoder_mod.register_forward_pre_hook(
-        lambda module, args: (args[0].double(), *args[1:]))
+    model.register_forward_pre_hook(
+        lambda module, args, kwargs: (tuple(map(_double, args)),
+                                      {k: _double(v)
+                                       for k, v in kwargs.items()}),
+        with_kwargs=True)
     return model

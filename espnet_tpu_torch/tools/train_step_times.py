@@ -38,11 +38,12 @@ def main(argv=None):
 
     from espnet_tpu_torch.data.preprocessor import CommonPreprocessor
     from espnet_tpu_torch.data.synth_speech import SynthSpeechCorpus
-    from espnet_tpu_torch.tasks.asr import build_model_from_file
+    from espnet_tpu_torch.tasks.asr import ASRTask
     if not torch.cuda.is_available():
         sys.exit("train_step_times: no card")
     asset = root / "assets" / "synth_asr_flagship"
-    model, _ = build_model_from_file(asset / "config.yaml", asset, "cuda")
+    model, _ = ASRTask.build_model_from_file(asset / "config.yaml", asset,
+                                             "cuda")
     model.train()
     utts = [SynthSpeechCorpus().utterance("test", i) for i in range(25)]
     pre = CommonPreprocessor("char", list(model.token_list))

@@ -12,8 +12,9 @@ improvement, averages the n best at the end, and resumes from
 
 Each epoch seeds torch's generators (dropout) and the SpecAug generator
 with seed + epoch, as the reference does, so a resumed run draws what an
-uninterrupted one would. Not ported (the task refuses them): mesh/FSDP,
-bf16 ``train_dtype``, ``steps_per_dispatch``, attention plots, the
+uninterrupted one would. Steps run one at a time (the JAX package's
+``steps_per_dispatch`` grouping is not needed here). Not ported (the task
+refuses them): mesh/FSDP, bf16 ``train_dtype``, attention plots, the
 forward/backward time breakdown and anomaly location.
 """
 

@@ -260,12 +260,25 @@ def test_attention_gradient_on_the_card_reaches_every_projection():
 
 @pytest.mark.gpu
 def test_logmel_kernel_refuses_a_wave_that_needs_a_gradient():
+    # the kernel takes such a wave: it launches (one count) and its
+    # backward is the plain version's, recomputed from the wave, so the
+    # gradient equals the plain version's on the card; under no_grad it
+    # records no graph
     _cuda_or_skip()
-    wave = torch.randn(2, 4000, device="cuda", requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        fused_logmel(wave)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    wave = 0.1 * torch.randn(2, 4000, generator=g, device="cuda")
+    weight = torch.randn(2, 32, 80, generator=g, device="cuda")
+    grads = {}
+    for name, fn in (("kernel", fused_logmel), ("plain", fused_logmel_plain)):
+        x = wave.clone().requires_grad_()
+        _cuda.reset_launch_counts()
+        (fn(x) * weight).sum().backward()
+        assert _cuda.LAUNCHES["logmel_fwd"] == (name == "kernel")
+        grads[name] = x.grad
+    torch.testing.assert_close(grads["kernel"], grads["plain"], rtol=0,
+                               atol=0)
     with torch.no_grad():
-        assert fused_logmel(wave).grad_fn is None
+        assert fused_logmel(wave.requires_grad_()).grad_fn is None
 
 
 @pytest.mark.gpu
@@ -391,10 +404,9 @@ def test_transducer_decode_on_the_card_goes_through_the_logmel_kernel():
 def test_transducer_train_step_launches_each_sweep_once():
     _cuda_or_skip()
     from espnet_tpu_torch.data.preprocessor import CommonPreprocessor
-    from espnet_tpu_torch.tasks.asr import build_model_from_file
-    from espnet_tpu_torch.tasks.asr_transducer import build_model
-    model, _ = build_model_from_file(TRANSDUCER / "config.yaml", TRANSDUCER,
-                                     "cuda", build=build_model)
+    from espnet_tpu_torch.tasks.asr_transducer import ASRTransducerTask
+    model, _ = ASRTransducerTask.build_model_from_file(
+        TRANSDUCER / "config.yaml", TRANSDUCER, "cuda")
     speech, lengths, refs = _held_out(4)
     pre = CommonPreprocessor("char", list(model.token_list))
     ids = [pre("u", {"text": t})["text"] for t in refs]
@@ -710,3 +722,114 @@ def test_grad_check_pin_holds_the_decoder_feed_forward_to_float64():
         err = float((grads["card"][name] - ref).abs().max()
                     / ref.abs().max())
         assert err <= 1e-5, (name, err)
+
+
+ENH = Path(__file__).resolve().parents[1] / "assets" / "synth_enh_tcn"
+
+
+@pytest.mark.gpu
+def test_separation_on_the_card_matches_the_cpu():
+    # the TCN asset on two 4 s test mixtures: each separated wave within
+    # 1e-4 of its largest sample on the card and on the CPU (fp32 sums in
+    # another order through 8 blocks, the STFT and the overlap-add), the
+    # same bits twice on the card, and no kernel launched
+    _cuda_or_skip()
+    from espnet_tpu_torch.bin.enh_inference import SeparateSpeech
+    from espnet_tpu_torch.data.synth_speech import SynthMixCorpus
+    corpus = SynthMixCorpus()
+    mix = np.stack([corpus.mixture("test", i)[0] for i in range(2)])
+    card = SeparateSpeech(ENH / "config.yaml", ENH, fs=16000)
+    cpu = SeparateSpeech(ENH / "config.yaml", ENH, fs=16000, device="cpu")
+    _cuda.reset_launch_counts()
+    got, again = card(mix), card(mix)
+    assert not any(_cuda.LAUNCHES.values()), _cuda.LAUNCHES
+    for a, b, c in zip(got, again, cpu(mix)):
+        np.testing.assert_array_equal(a, b)
+        assert np.abs(a - c).max() <= 1e-4 * np.abs(c).max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("encoder", ["stft", "conv"])
+def test_enhancement_training_on_the_card_repeats_itself_bit_for_bit(
+        tmp_path, encoder):
+    # two 3-step runs from one seed end with the same parameters: the
+    # cuDNN convolutions' weight gradients (deterministic algorithms) and
+    # the iSTFT's overlap-add (F.fold, no atomics) repeat
+    _cuda_or_skip()
+    from espnet_tpu_torch.data.synth_speech import SynthMixCorpus
+    from espnet_tpu_torch.tasks.enh import EnhancementTask
+    from espnet_tpu_torch.train.checkpoint import load_checkpoint
+    SynthMixCorpus(seconds=1.0).materialize(tmp_path / "data", n_train=6,
+                                            n_valid=0, n_test=0)
+    d = tmp_path / "data" / "train"
+
+    def train(name):
+        EnhancementTask.main({
+            "output_dir": str(tmp_path / name), "seed": 3, "max_epoch": 3,
+            "num_iters_per_epoch": 1, "batch_type": "sorted",
+            "batch_size": 3, "optim": "adam", "optim_conf": {"lr": 0.002},
+            "encoder": encoder,
+            "encoder_conf": {"channels": 64, "kernel_size": 16,
+                             "stride": 8},
+            "separator": "tcn",
+            "separator_conf": {"layers": 4, "stacks": 1,
+                               "bottleneck_dim": 32, "hidden_dim": 64},
+            "train_data_path_and_name_and_type": [
+                f"{d}/wav.scp,speech_mix,sound",
+                f"{d}/spk1.scp,speech_ref1,sound",
+                f"{d}/spk2.scp,speech_ref2,sound"]})
+        return load_checkpoint(tmp_path / name / "checkpoint")[0]
+
+    ref, other = train("a"), train("b")
+    assert sorted(other) == sorted(ref)
+    for name in ref:
+        np.testing.assert_array_equal(other[name], ref[name], err_msg=name)
+
+
+@pytest.mark.gpu
+def test_joint_model_decodes_and_trains_through_the_kernels():
+    # a small joint model (TCN enhancement, 2-block conformer ASR): its
+    # decode's encode launches the log-mel kernel once and the attention
+    # forward per block; a train step differentiates through the frontend:
+    # it launches the log-mel kernel once (its backward is the plain
+    # version's) and the attention forward and backward
+    _cuda_or_skip()
+    from espnet_tpu_torch.tasks.enh import EnhS2TTask
+    tokens = ["<blank>", "a", "b", "<space>", "<sos/eos>"]
+    model = EnhS2TTask.build_model({
+        "token_list": tokens,
+        "enh_conf": {"num_spk": 2, "separator": "tcn",
+                     "separator_conf": {"layers": 2, "stacks": 1,
+                                        "bottleneck_dim": 16,
+                                        "hidden_dim": 32}},
+        "asr_conf": {"frontend_conf": {"n_fft": 512, "hop_length": 128,
+                                       "n_mels": 80},
+                     "encoder": "conformer",
+                     "encoder_conf": {"output_size": 64,
+                                      "attention_heads": 4,
+                                      "linear_units": 128, "num_blocks": 2,
+                                      "cnn_module_kernel": 7},
+                     "decoder_conf": {"attention_heads": 4,
+                                      "linear_units": 128, "num_blocks": 1},
+                     "ctc_weight": 0.3}}).cuda()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    speech = 0.1 * torch.randn(2, 16000, generator=g, device="cuda")
+    lens = torch.tensor([16000, 12000], device="cuda")
+    model.eval()
+    _cuda.reset_launch_counts()
+    with torch.no_grad():
+        model.encode(speech, lens)
+    assert _cuda.LAUNCHES["logmel_fwd"] == 1
+    assert _cuda.LAUNCHES["flash_attn_fwd"] == 2
+    model.train()
+    _cuda.reset_launch_counts()
+    loss, stats, _ = model(speech, lens, torch.ones(2, 3, dtype=torch.long,
+                                                    device="cuda"),
+                           torch.tensor([3, 2], device="cuda"),
+                           speech_ref1=speech)
+    loss.backward()
+    assert torch.isfinite(loss) and "enh_loss" in stats
+    assert _cuda.LAUNCHES["logmel_fwd"] == 1
+    assert _cuda.LAUNCHES["flash_attn_fwd"] == 2
+    assert _cuda.LAUNCHES["flash_attn_bwd"] == 4
+    assert all(p.grad is not None for p in model.enh.parameters())

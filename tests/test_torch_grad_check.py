@@ -1,4 +1,4 @@
-"""chip_smoke.py's grad check, on the CPU: its ReLU pin and its float64 leg.
+"""chip_smoke.py's grad check, on the CPU: its pins and its float64 leg.
 
 The grad check (chip_smoke.py:grad_check) holds one backward on the card
 against the CPU's, with the CPU's pre-activations moved onto the card's
@@ -7,8 +7,9 @@ the same model, pinned the same way, as the reference of both fp32 legs.
 Here without a card: ``take_side`` puts every unit on the wanted side,
 however small its value, with an identity gradient; the pin's moves stay
 within rounding between fp32 and float64, and a pin taken from another
-batch moves units far past MOVE_TOL; the float64 leg stays float64
-from the encoder to the loss, and with the pin its gradients are an fp32
+batch moves units far past MOVE_TOL; so do the pins of each rel-pos
+self-attention's inputs; the float64 leg stays float64 from the
+frontend to the loss, and with the pin its gradients are an fp32
 backward's to within fp32 rounding; and the losses, which that leg runs
 in float64, keep float64 there and still match the JAX package's.
 """
@@ -97,12 +98,12 @@ def test_float64_leg_is_float64_and_pinned_as_the_fp32_leg():
     # of its scale of the fp32 one (fp32 rounding through 6 blocks and 3
     # decoder layers, ~1e-5; a ReLU unit on the other side would move a
     # gradient by a whole unit's term, ~1e-3)
-    from espnet_tpu_torch.tasks.asr import build_model_from_file
+    from espnet_tpu_torch.tasks.asr import ASRTask
     batch = _flagship_batch()
     signs, grads, moved = {}, {}, {}
     for leg in ("fp32", "float64"):
-        model, _ = build_model_from_file(FLAGSHIP / "config.yaml", FLAGSHIP,
-                                         "cpu")
+        model, _ = ASRTask.build_model_from_file(FLAGSHIP / "config.yaml",
+                                                 FLAGSHIP, "cpu")
         if leg == "float64":
             grad_pin.to_float64(model)
         grad_pin.pin_relus(grad_pin.relu_inputs(model), signs,
@@ -120,6 +121,64 @@ def test_float64_leg_is_float64_and_pinned_as_the_fp32_leg():
         assert float(np.abs(grads["fp32"][name] - ref).max()) <= 1e-4 * scale
     # the units moved lie within rounding of 0
     assert all(row[2] <= grad_pin.MOVE_TOL for row in moved.values()), moved
+
+
+def test_attention_pin_moves_only_rounding_and_restores_the_modules():
+    # the flagship on two held-out utterances: an fp32 forward notes each
+    # rel-pos self-attention's inputs, a float64 forward takes them,
+    # moved by no more than rounding (the padding's -1e9 bias left out),
+    # with an identity gradient into the float64 projections; a pin
+    # noted on another batch moves them by ~1 of their scale; removing
+    # the handles gives each module its class's kernel_inputs back
+    from espnet_tpu_torch.nn.attention import RelPositionMultiHeadedAttention
+    from espnet_tpu_torch.tasks.asr import ASRTask
+    batch = _flagship_batch()
+    other = dict(batch, speech=batch["speech"].flip(1))
+    for noted_on, bound in ((batch, True), (other, False)):
+        store, moved = {}, {}
+        for leg in ("fp32", "float64"):
+            model, _ = ASRTask.build_model_from_file(
+                FLAGSHIP / "config.yaml", FLAGSHIP, "cpu")
+            if leg == "float64":
+                grad_pin.to_float64(model)
+            hooks = grad_pin.pin_attention(
+                model, store, moved if leg == "float64" else None)
+            assert len(hooks) == 6
+            loss, _, _ = model(**(noted_on if leg == "fp32" else batch))
+            if leg == "float64":
+                loss.backward()
+            for h in hooks:
+                h.remove()
+        assert sorted(moved) == sorted(store) and len(store) == 6
+        if bound:
+            assert all(r[2] <= grad_pin.MOVE_TOL for r in moved.values())
+            assert model.encoder_mod.layers[0].self_attn.linear_q \
+                .weight.grad.abs().max() > 0
+        else:
+            assert max(r[2] for r in moved.values()) > 0.1, moved
+    assert all("kernel_inputs" not in vars(m) for m in model.modules()
+               if isinstance(m, RelPositionMultiHeadedAttention))
+
+
+def test_frontend_keeps_a_float64_wave_float64():
+    # the float64 leg's frontend: a float64 wave gives float64 log-mel
+    # features (fused rule and plain STFT path both), within 1e-5 of
+    # their largest of the fp32 features on the same wave (~7e-7 seen:
+    # fp32 rounding), and a float64
+    # gradient back into the wave
+    from espnet_tpu_torch.frontends.default import DefaultFrontend
+    wave = _flagship_batch()["speech"]
+    lengths = torch.tensor([wave.shape[1]] * 2)
+    for fused in ("auto", "never"):
+        fe = DefaultFrontend(use_fused_kernel=fused)
+        f32, _ = fe(wave, lengths)
+        x = wave.double().requires_grad_()
+        f64, _ = fe(x, lengths)
+        assert f32.dtype == torch.float32 and f64.dtype == torch.float64
+        err = (f64.detach() - f32.double()).abs().max()
+        assert float(err) <= 1e-5 * float(f64.detach().abs().max())
+        f64.sum().backward()
+        assert x.grad.dtype == torch.float64
 
 
 def test_losses_keep_float64_and_match_jax():

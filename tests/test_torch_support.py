@@ -20,7 +20,7 @@ from espnet_tpu_torch import convert
 from espnet_tpu_torch.bin.asr_inference import Speech2Text
 from espnet_tpu_torch.data.synth_speech import SynthSpeechCorpus
 from espnet_tpu_torch.ops import _cuda
-from espnet_tpu_torch.tasks.asr import build_model_from_file, read_token_list
+from espnet_tpu_torch.tasks.asr import ASRTask, read_token_list
 from espnet_tpu_torch.text.tokenizer import CharTokenizer, TokenIDConverter
 from espnet_tpu_torch.utils.config import load_yaml, loads_yaml
 from espnet_tpu_torch.utils.scoring import score_corpus
@@ -154,7 +154,8 @@ def test_asset_files_next_to_config_win_over_configured_paths(tmp_path):
         (asset / name).write_bytes((FLAGSHIP / name).read_bytes())
     assert load_yaml(asset / "config.yaml")["token_list"] == str(
         decoy / "tokens.txt")
-    model, cfg = build_model_from_file(asset / "config.yaml", FLAGSHIP, "cpu")
+    model, cfg = ASRTask.build_model_from_file(asset / "config.yaml",
+                                               FLAGSHIP, "cpu")
     assert cfg["token_list"] == str(asset / "tokens.txt")
     assert cfg["stats_file"] == str(asset / "feats_stats.npz")
     assert list(model.token_list) == read_token_list(FLAGSHIP / "tokens.txt")

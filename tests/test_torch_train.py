@@ -35,8 +35,7 @@ from espnet_tpu_torch.ops.attention import (fused_attention_bwd_plain,
                                             fused_attention_plain,
                                             softmax_stats_plain)
 from espnet_tpu_torch.ops.specaug import mask_along_axis, specaug, time_warp
-from espnet_tpu_torch.tasks.asr import (build_model, build_model_from_file,
-                                        read_token_list)
+from espnet_tpu_torch.tasks.asr import ASRTask, build_model, read_token_list
 from espnet_tpu_torch.text.tokenizer import CharTokenizer, TokenIDConverter
 from espnet_tpu_torch.train.optim import build_optimizer
 from espnet_tpu_torch.train.trainer import make_train_step
@@ -604,8 +603,8 @@ def test_flagship_full_width_eval_loss(record_property):
     ref_loss, ref_stats, _ = jax.jit(
         lambda p, b: jax_s2t.model.apply(p, **b, deterministic=True))(
         jax_s2t.params, _jax_batch(batch))
-    model, _ = build_model_from_file(FLAGSHIP / "config.yaml", FLAGSHIP,
-                                     "cpu")
+    model, _ = ASRTask.build_model_from_file(FLAGSHIP / "config.yaml",
+                                             FLAGSHIP, "cpu")
     with torch.no_grad():
         loss, stats, _ = model(**_torch_batch(batch))
     # 6 blocks and 3 decoder layers at d=256 in fp32: about 1e-4 of it

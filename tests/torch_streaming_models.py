@@ -39,7 +39,7 @@ def flax_params(module, *args, seed=0, **kwargs):
     flat = {}
     for key, leaf in sorted(flatten_dict(shapes, sep="/").items()):
         shape, name = leaf.shape, key.rsplit("/", 1)[-1]
-        x = rng.randn(*shape)
+        x = np.asarray(rng.randn(*shape))   # 0-d leaves too
         if name == "kernel":
             x = x / np.sqrt(np.prod(shape[:-1]))
         elif name == "scale":
