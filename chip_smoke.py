@@ -144,6 +144,32 @@ Phases, each printing one JSON line:
     clean utterance as the mixture and as speech_ref1 (launches 6 / 12 / 0
     per step: the frontend is differentiated, which K2 cannot be), and
     grad_check.
+24. lm_perplexity: the LM recipe's 300 valid sentences
+    (egs/synth_asr/lm1/run.py's stage-1 draw) through
+    bin/lm_calc_perplexity.py on assets/synth_lm at batch 64 (limit: the
+    JAX package's fp32 perplexity, scripts/jax_tts_lm_reference.py, within
+    1e-4 relative), and the first batch's nll on the card against the
+    CPU (1e-5 of its largest entry);
+25. lm_fused_decode: the recipe's stage 4: the flagship Speech2Text on
+    the first 64 test utterances padded to their bucket (base 4096,
+    x1.3), beam 10, CTC 0.3, without the LM and with it fused at 0.3: WER
+    (limit: the JAX package's + 0.5 points), ids equal to JAX's, audio
+    seconds per second, launches (K1 and K2 in both), and, in a third
+    decode, the LM step's time against the beam step's (CUDA events);
+26. tts_vits: the VITS recipe's 50 valid texts (speaker 0, drawn without
+    their waves, checked against the JAX recipe's keys and texts) through
+    assets/synth_tts_vits at max_frames 640, text padded to 64, noise
+    scales 0.333 and 0.667, z_p's noise numpy's RandomState(1000 + i);
+    each wave padded to its bucket and transcribed alone by the flagship
+    (beam 10, CTC 0.3): WER and CER (limit at 0.333: the JAX package's +
+    0.5 points), durations, frames and ids equal to JAX's, synthesized
+    audio seconds per second, peak memory, the ASR leg's launches (K1 6,
+    K2 1 a decode); the card's waves against the CPU's on the first 8
+    texts whose durations agree (1e-4 of the largest sample), the same
+    bits twice, the flow's forward after its inverse (1e-5 of |z_p|);
+    Text2Speech with its own torch.Generator at 0.333 over the 50 texts
+    (WER beside RESULTS.json's, not gated); and the CLI
+    (bin/tts_inference.py:main) on 4 texts, its WAVs equal to the API's.
 
 Then the nvidia-smi line, one {"kernels": [...]} line (errors, times and
 bounds of phase 4, launches from the paths that run each kernel; a bound
@@ -297,6 +323,31 @@ ENH_VALID_DROP = 0.1    # dB of validation SI-SNR
 # at most the JAX package's + 0.5 points; 6 train steps at batch 25
 S2T_WER_MARGIN = 0.005
 S2T_TRAIN_STEPS = 6
+# the LM and VITS serving phases (24-26): assets/synth_lm's perplexity on
+# the LM recipe's 300 valid sentences, the flagship with the LM fused,
+# and the VITS -> ASR round trip; the JAX package's fp32 figures on the
+# same input from scripts/jax_tts_lm_reference.py (run on the CPU, its
+# output committed)
+LM = ROOT / "assets" / "synth_lm"
+TTS = ROOT / "assets" / "synth_tts_vits"
+TTS_LM_REFERENCE = ROOT / "scripts" / "jax_tts_lm_reference.json"
+N_VALID_LM = 300
+PPL_BATCH = 64
+PPL_REL_TOL = 1e-4      # of the JAX package's fp32 perplexity
+LM_NLL_TOL = 1e-5       # card against CPU, of the batch's largest nll
+LM_WEIGHT = 0.3
+LM_WER_MARGIN = 0.005   # WER at most the JAX package's + 0.5 points
+N_VALID_TTS = 60        # the VITS recipe's valid set; the first 50 keys
+N_EVAL_TTS = 50
+MAX_FRAMES = 640
+TEXT_PAD = 64
+NOISE_SCALES = (0.333, 0.667)
+NOISE_SEED = 1000       # z_p's draw for text i: RandomState(1000 + i)
+TTS_WER_MARGIN = 0.005  # at noise scale 0.333, against the JAX package's
+TTS_CPU_UTTS = 8        # card against CPU waves on the first 8 texts
+TTS_WAVE_TOL = 1e-4     # of the largest sample, at equal durations
+FLOW_TOL = 1e-5         # the flow's forward after its inverse, of |z_p|
+N_CLI_TTS = 4
 
 
 def emit(obj):
@@ -1590,6 +1641,386 @@ def enhancement_phases(torch, _cuda, workdir: Path, smi: str, speech_np,
     return s2t_decode_launches, s2t_want
 
 
+def lm_sentences(corpus, n: int = N_VALID_LM):
+    """[(key, sentence)]: the LM recipe's stage-1 draw of its valid set
+    (egs/synth_asr/lm1/run.py), text only."""
+    out = []
+    for i in range(n):
+        rng = corpus._rng_for("lmtext-valid", i)
+        n_w = rng.randint(corpus.min_words, corpus.max_words + 1)
+        widx = rng.choice(len(corpus.words), size=n_w, p=corpus.word_p)
+        out.append((f"valid_{i:06d}",
+                    " ".join(corpus.words[j] for j in widx)))
+    return out
+
+
+def write_text(path: Path, rows):
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text("".join(f"{k} {t}\n" for k, t in rows),
+                    encoding="utf-8")
+
+
+def decode_batch(corpus, bucket_length, n: int = N_UTTS):
+    """The LM recipe's stage-4 batch: the first n test utterances padded
+    to their length bucket (base 4096, x1.3) -> (speech, lengths, refs)."""
+    import numpy as np
+    utts = [corpus.utterance("test", i) for i in range(n)]
+    L = bucket_length(max(len(u[0]) for u in utts), base=4096, growth=1.3)
+    speech = np.zeros((n, L), np.float32)
+    lens = np.zeros((n,), np.int32)
+    for j, (w, _, _) in enumerate(utts):
+        speech[j, :len(w)] = w
+        lens[j] = len(w)
+    return speech, lens, [u[1] for u in utts]
+
+
+def tts_keys(corpus):
+    """The VITS recipe's round-trip texts: the first 50 sorted keys of its
+    speaker-0 corpus's 60 valid utterances, drawn without their waves."""
+    texts = {f"valid_{i:05d}": corpus.transcript("valid", i, [0])[0]
+             for i in range(N_VALID_TTS)}
+    keys = sorted(texts)[:N_EVAL_TTS]
+    return keys, [texts[k] for k in keys]
+
+
+def tts_noise(i: int):
+    """z_p's standard normal draw for the i-th text, (1, 640, 192)."""
+    import numpy as np
+    return np.random.RandomState(NOISE_SEED + i).randn(
+        1, MAX_FRAMES, 192).astype(np.float32)
+
+
+def padded_ids(ids):
+    import numpy as np
+    t = np.zeros((1, TEXT_PAD), np.int64)
+    t[0, :len(ids)] = ids
+    return t
+
+
+def wave_batch(wav, bucket_length):
+    """One synthesized wave padded to its length bucket (base 4096, x1.3),
+    as the VITS recipe transcribes it -> (speech (1, L), lengths)."""
+    import numpy as np
+    Lb = bucket_length(max(len(wav), 4096), base=4096, growth=1.3)
+    return np.pad(wav, (0, Lb - len(wav)))[None], np.asarray([len(wav)])
+
+
+class TimedLM:
+    """An LM scorer that times each of its steps on the card (CUDA events),
+    and the beam steps between them."""
+
+    def __init__(self, torch, lm):
+        self.torch, self.lm, self.events = torch, lm, []
+
+    def init_carry(self, *args, **kwargs):
+        return self.lm.init_carry(*args, **kwargs)
+
+    def score_step(self, token, step, state):
+        start = self.torch.cuda.Event(enable_timing=True)
+        end = self.torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.lm.score_step(token, step, state)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def select_state(self, state, idx):
+        return self.lm.select_state(state, idx)
+
+    def share(self) -> dict:
+        """LM ms per step, beam-step ms (one LM start to the next), and the
+        LM's share of the beam steps."""
+        self.torch.cuda.synchronize()
+        lm_ms = [s.elapsed_time(e) for s, e in self.events]
+        step_ms = [a.elapsed_time(b) for (a, _), (b, _) in
+                   zip(self.events, self.events[1:])]
+        return {"steps": len(lm_ms),
+                "lm_step_ms_median": statistics.median(lm_ms),
+                "beam_step_ms_median": statistics.median(step_ms),
+                "lm_share_of_beam_steps": sum(lm_ms[:-1]) / sum(step_ms)}
+
+
+def lm_tts_phases(torch, _cuda, workdir: Path, smi: str):
+    """Phases 24-26: the LM's perplexity, the flagship with the LM fused,
+    and the VITS -> ASR round trip. -> the launches per decode of the
+    fused decode and of the round trip's ASR leg."""
+    import numpy as np
+
+    from espnet_tpu_torch.bin import tts_inference
+    from espnet_tpu_torch.bin.asr_inference import Speech2Text
+    from espnet_tpu_torch.bin.lm_calc_perplexity import calc_perplexity
+    from espnet_tpu_torch.data.batching import bucket_length
+    from espnet_tpu_torch.data.fileio import SoundScpReader, SoundScpWriter
+    from espnet_tpu_torch.data.synth_speech import SynthSpeechCorpus
+    from espnet_tpu_torch.models.tts.fastspeech2 import length_regulator
+    from espnet_tpu_torch.tasks.gan_tts import GANTTSTask
+    from espnet_tpu_torch.tasks.lm import LMTask
+    from espnet_tpu_torch.utils.masks import make_non_pad_mask
+    from espnet_tpu_torch.utils.scoring import score_corpus
+
+    ref = json.loads(TTS_LM_REFERENCE.read_text(encoding="utf-8"))
+    corpus = SynthSpeechCorpus()
+
+    # 24. perplexity of the 300 valid sentences, batch 64, and one batch's
+    # nll on the card against the CPU
+    text_file = workdir / "lm" / "valid" / "text"
+    sentences = lm_sentences(corpus)
+    write_text(text_file, sentences)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ppl = calc_perplexity(train_config=str(LM / "config.yaml"),
+                          model_file=str(LM),
+                          data_path_and_name_and_type=[
+                              f"{text_file},text,text"],
+                          batch_size=PPL_BATCH)
+    torch.cuda.synchronize()
+    ppl_s = time.perf_counter() - t0
+    nll = {}
+    pre = LMTask.build_preprocess_fn({"token_list": str(LM / "tokens.txt")},
+                                     train=False)
+    ids = [pre(k, {"text": t})["text"] for k, t in sentences[:PPL_BATCH]]
+    text = np.zeros((len(ids), max(map(len, ids))), np.int64)
+    for i, x in enumerate(ids):
+        text[i, :len(x)] = x
+    lens = np.asarray([len(x) for x in ids])
+    for dev in ("cuda", "cpu"):
+        lm, _ = LMTask.build_model_from_file(LM / "config.yaml", LM, dev)
+        with torch.no_grad():
+            nll[dev] = lm.nll(torch.from_numpy(text).to(dev),
+                              torch.from_numpy(lens).to(dev))[0].cpu()
+    nll_err = rel_err(nll["cuda"], nll["cpu"])
+    jax_ppl = ref["lm_perplexity"]["ppl"]
+    n_tok = int(lens.sum() + len(lens))
+    emit({"phase": "lm_perplexity", "asset": LM.name,
+          "n_sentences": len(sentences), "batch_size": PPL_BATCH,
+          "perplexity": ppl, "jax_fp32": jax_ppl,
+          "rel_diff": abs(ppl / jax_ppl - 1), "rel_tol": PPL_REL_TOL,
+          "asset_results_json": ref["lm_perplexity"]["asset_results_json"],
+          "nll_card_vs_cpu_rel": nll_err, "nll_tol": LM_NLL_TOL,
+          "wall_seconds": ppl_s, "first_batch_tokens": n_tok,
+          "nvidia_smi": smi})
+    if not abs(ppl / jax_ppl - 1) <= PPL_REL_TOL:
+        raise AssertionError(f"perplexity {ppl} against the JAX package's "
+                             f"{jax_ppl}")
+    if not nll_err <= LM_NLL_TOL:
+        raise AssertionError(f"LM nll, card against CPU: {nll_err}")
+
+    # 25. the flagship on the LM recipe's stage-4 batch, beam 10, CTC 0.3,
+    # without the LM and with it at 0.3
+    speech_np, lens_np, refs = decode_batch(corpus, bucket_length)
+    speech = torch.from_numpy(speech_np).cuda()
+    lengths = torch.from_numpy(lens_np).long().cuda()
+    audio_s = float(lens_np.sum()) / 16000
+    fused = {}
+    lm_launches = None
+    for lw in (0.0, LM_WEIGHT):
+        s2t = Speech2Text(
+            asr_train_config=ASSET / "config.yaml", asr_model_file=ASSET,
+            beam_size=BEAM, ctc_weight=CTC_WEIGHT,
+            lm_train_config=(LM / "config.yaml") if lw else None,
+            lm_file=LM if lw else None, lm_weight=lw)
+        s2t(speech, lengths)
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = s2t(speech, lengths)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+        ids = [list(map(int, n[0][2])) for n in out]
+        want = ref["lm_fused_decode"][f"lm_weight_{lw}"]
+        entry = wer_cer(score_corpus, refs, [n[0][0] for n in out]) | {
+            "jax_fp32": {k: want[k] for k in ("wer", "cer", "word_errors",
+                                              "ref_words")},
+            "wer_limit": want["wer"] + LM_WER_MARGIN,
+            "ids_equal_jax": sum(a == b for a, b in zip(ids, want["ids"])),
+            "ids_differ": [[u, ids[u], want["ids"][u]]
+                           for u in range(len(ids))
+                           if ids[u] != want["ids"][u]],
+            "wall_seconds": wall, "audio_s_per_s": audio_s / wall,
+            "launches": launches}
+        if lw:
+            lm_launches = launches
+            timed = TimedLM(torch, s2t.lm)
+            s2t.lm = timed
+            s2t(speech, lengths)
+            entry["lm_step_timing"] = timed.share()
+        fused[f"lm_weight_{lw}"] = entry
+        if not entry["wer"] <= entry["wer_limit"]:
+            raise AssertionError(f"LM weight {lw}: WER {entry['wer']} above "
+                                 f"{entry['wer_limit']}")
+        if not (launches["flash_attn_fwd"] > 0 and launches["logmel_fwd"] > 0):
+            raise AssertionError(f"LM weight {lw}: launches {launches}")
+        del s2t
+    emit({"phase": "lm_fused_decode", "assets": [ASSET.name, LM.name],
+          "n_utts": N_UTTS, "beam": BEAM, "ctc_weight": CTC_WEIGHT,
+          "batch_shape": list(speech.shape), "audio_seconds": audio_s}
+         | fused | {"nvidia_smi": smi})
+
+    # 26. VITS -> ASR: the recipe's 50 texts at max_frames 640, text padded
+    # to 64, z_p's noise from numpy, each wave transcribed alone
+    keys, texts = tts_keys(corpus)
+    tref = ref["tts_vits"]
+    if keys != tref["keys"] or texts != tref["texts"]:
+        raise AssertionError("the round trip's keys or texts differ from "
+                             "the JAX recipe's")
+    model, cfg = GANTTSTask.build_model_from_file(TTS / "config.yaml", TTS)
+    hop = cfg["hop_length"]
+    pre = GANTTSTask.build_preprocess_fn(cfg, train=False)
+    text_ids = [pre(k, {"text": t, "speech": np.zeros(512, np.float32)})
+                ["text"] for k, t in zip(keys, texts)]
+    s2t = Speech2Text(asr_train_config=ASSET / "config.yaml",
+                      asr_model_file=ASSET, beam_size=BEAM,
+                      ctc_weight=CTC_WEIGHT)
+
+    def synthesize(m, i, ns, dev):
+        t = torch.from_numpy(padded_ids(text_ids[i])).to(dev)
+        tl = torch.tensor([len(text_ids[i])], device=dev)
+        with torch.no_grad():
+            dur = m.generator.prior_and_durations(t, tl)[2]
+            wav, olens = m.decode(t, tl, noise=torch.from_numpy(
+                tts_noise(i)).to(dev), noise_scale=ns,
+                max_frames=MAX_FRAMES)
+        return wav[0, :int(olens[0]) * hop], dur[0, :len(text_ids[i])]
+
+    synthesize(model, 0, NOISE_SCALES[0], "cuda")     # warm-up
+    round_trip = {}
+    waves = {}
+    tts_launches = None
+    for ns in NOISE_SCALES:
+        want = tref[f"ns_{ns}"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        synth_s, durs, frames = 0.0, [], []
+        for i in range(len(keys)):
+            t0 = time.perf_counter()
+            wav, dur = synthesize(model, i, ns, "cuda")
+            torch.cuda.synchronize()
+            synth_s += time.perf_counter() - t0
+            waves[ns, i] = wav
+            durs.append(dur.tolist())
+            frames.append(len(wav) // hop)
+        peak = torch.cuda.max_memory_allocated()
+        synth_audio = sum(frames) * hop / cfg["fs"]
+        s2t(*wave_batch(waves[ns, 0].cpu().numpy(), bucket_length))
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = [s2t(*wave_batch(waves[ns, i].cpu().numpy(), bucket_length))
+                for i in range(len(keys))]
+        torch.cuda.synchronize()
+        asr_s = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+        ids = [list(map(int, o[0][0][2])) for o in outs]
+        same_dur = [u for u in range(len(keys)) if durs[u] ==
+                    want["durations"][u]]
+        entry = wer_cer(score_corpus, texts, [o[0][0][0] for o in outs]) | {
+            "jax_fp32": {k: want[k] for k in ("wer", "cer", "word_errors",
+                                              "ref_words")},
+            "durations_equal_jax": len(same_dur),
+            "durations_differ": [[u, durs[u], want["durations"][u]]
+                                 for u in range(len(keys))
+                                 if u not in same_dur],
+            "frames_equal_jax": sum(a == b for a, b in
+                                    zip(frames, want["frames"])),
+            "ids_equal_jax": sum(a == b for a, b in zip(ids, want["ids"])),
+            "synth_seconds": synth_s, "synth_audio_seconds": synth_audio,
+            "synth_audio_s_per_s": synth_audio / synth_s,
+            "synth_peak_memory_bytes": peak,
+            "asr_seconds": asr_s, "asr_launches": launches,
+            "asr_launches_per_decode": {k: v / len(keys)
+                                        for k, v in launches.items()}}
+        if ns == NOISE_SCALES[0]:
+            entry["wer_limit"] = want["wer"] + TTS_WER_MARGIN
+            tts_launches = {k: v // len(keys) for k, v in launches.items()}
+            if not entry["wer"] <= entry["wer_limit"]:
+                raise AssertionError(f"round-trip WER {entry['wer']} above "
+                                     f"{entry['wer_limit']}")
+            if launches != {k: v * len(keys)
+                            for k, v in tts_launches.items()} or not (
+                    tts_launches["flash_attn_fwd"] > 0
+                    and tts_launches["logmel_fwd"] > 0):
+                raise AssertionError(f"round-trip ASR launches {launches}")
+        round_trip[f"ns_{ns}"] = entry
+        if ns == NOISE_SCALES[0]:
+            first_durs = durs
+
+    # the card against the CPU on the first texts whose durations agree;
+    # the same bits twice; the flow's forward after its inverse
+    cpu_model, _ = GANTTSTask.build_model_from_file(TTS / "config.yaml",
+                                                    TTS, "cpu")
+    ns = NOISE_SCALES[0]
+    wave_err, compared = 0.0, 0
+    for i in range(TTS_CPU_UTTS):
+        wav, dur = synthesize(cpu_model, i, ns, "cpu")
+        if dur.tolist() != first_durs[i]:
+            continue
+        compared += 1
+        wave_err = max(wave_err, rel_err(waves[ns, i].cpu(), wav))
+    again, _ = synthesize(model, 0, ns, "cuda")
+    same_bits = bool(torch.equal(again, waves[ns, 0]))
+    t = torch.from_numpy(padded_ids(text_ids[0])).cuda()
+    tl = torch.tensor([len(text_ids[0])], device="cuda")
+    gen = model.generator
+    with torch.no_grad():
+        m_p, logs_p, dur = gen.prior_and_durations(t, tl)
+        m_f, total = length_regulator(m_p, dur, MAX_FRAMES)
+        s_f, _ = length_regulator(logs_p, dur, MAX_FRAMES)
+        mask = make_non_pad_mask(total.clamp(max=MAX_FRAMES), MAX_FRAMES)
+        z_p = (m_f + torch.exp(s_f) * ns * torch.from_numpy(
+            tts_noise(0)).cuda()) * mask[..., None]
+        z_back = gen.flow(gen.flow(z_p, mask, reverse=True), mask)
+    flow_err = rel_err(z_back, z_p)
+
+    # Text2Speech with its own torch.Generator at 0.333 over the 50 texts,
+    # transcribed as above (not gated: its noise is not the JAX run's)
+    t2s = tts_inference.Text2Speech(train_config=TTS / "config.yaml",
+                                    model_file=TTS, noise_scale=ns)
+    hyps = [s2t(*wave_batch(t2s(text, out_len=MAX_FRAMES)["wav"],
+                            bucket_length))[0][0][0] for text in texts]
+    own = wer_cer(score_corpus, texts, hyps)
+
+    # the CLI on 4 texts: its wavs equal the API's, written alike
+    cli_text = workdir / "tts" / "text"
+    write_text(cli_text, list(zip(keys, texts))[:N_CLI_TTS])
+    tts_inference.main(["--output_dir", str(workdir / "tts" / "cli"),
+                        "--data_path_and_name_and_type",
+                        f"{cli_text},text,text",
+                        "--train_config", str(TTS / "config.yaml"),
+                        "--model_file", str(TTS)])
+    api = tts_inference.Text2Speech(train_config=TTS / "config.yaml",
+                                    model_file=TTS)
+    with SoundScpWriter(workdir / "tts" / "api", workdir / "tts" /
+                        "api.scp") as w:
+        for k, text in zip(keys[:N_CLI_TTS], texts[:N_CLI_TTS]):
+            w[k] = (api.fs, api(text)["wav"])
+    cli = SoundScpReader(workdir / "tts" / "cli" / "wav.scp")
+    api_r = SoundScpReader(workdir / "tts" / "api.scp")
+    cli_equal = (list(cli.keys()) == keys[:N_CLI_TTS] and all(
+        np.array_equal(cli[k][1], api_r[k][1]) for k in keys[:N_CLI_TTS]))
+    emit({"phase": "tts_vits", "assets": [TTS.name, ASSET.name],
+          "n_texts": len(keys), "max_frames": MAX_FRAMES,
+          "text_pad": TEXT_PAD, "noise": f"RandomState({NOISE_SEED} + i)",
+          "keys_and_texts_equal_jax_recipe": True}
+         | round_trip | {
+          "wave_card_vs_cpu_rel": wave_err, "wave_tol": TTS_WAVE_TOL,
+          "wave_compared_texts": compared, "same_bits_twice": same_bits,
+          "flow_round_trip_rel": flow_err, "flow_tol": FLOW_TOL,
+          "text2speech_own_generator_ns_0.333": own,
+          "asset_results_json_wer_ns_0.333":
+              tref["asset_results_json"]["wer_ns0.333"],
+          "cli_wavs_equal_api": cli_equal, "nvidia_smi": smi})
+    if not (compared > 0 and wave_err <= TTS_WAVE_TOL):
+        raise AssertionError(f"VITS card against CPU: {wave_err} over "
+                             f"{compared} texts")
+    if not (same_bits and cli_equal):
+        raise AssertionError(f"VITS: same bits twice {same_bits}, CLI "
+                             f"equal to the API {cli_equal}")
+    if not flow_err <= FLOW_TOL:
+        raise AssertionError(f"flow round trip {flow_err}")
+    return lm_launches, tts_launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2479,6 +2910,10 @@ def run(torch, workdir: Path):
     s2t_decode_launches, s2t_step_launches = enhancement_phases(
         torch, _cuda, workdir, smi, speech_np, lengths_np, refs)
 
+    # 24-26. the LM's perplexity, LM fusion and the VITS -> ASR round trip
+    lm_decode_launches, tts_decode_launches = lm_tts_phases(
+        torch, _cuda, workdir, smi)
+
     print(smi, flush=True)
     # launches of each kernel per decode and per train step on the paths
     # that run it; "launches" is the count on its main path's run: the
@@ -2489,7 +2924,9 @@ def run(torch, workdir: Path):
                         "transducer": tdecode_launches,
                         "longform": ldecode_launches,
                         "transducer_cli_batch": cli_batch_launches,
-                        "enh_s2t": s2t_decode_launches},
+                        "enh_s2t": s2t_decode_launches,
+                        "lm_fused": lm_decode_launches,
+                        "tts_round_trip_asr": tts_decode_launches},
              "train_step": {"flagship": want, "transducer": twant,
                             "longform": lwant,
                             "enh_s2t": s2t_step_launches}}

@@ -4,8 +4,10 @@
 ``Speech2Text`` is built from (asr_train_config, asr_model_file);
 ``__call__`` returns, per utterance, the n-best list
 [(text, tokens, token_ids, score)]. It takes hybrid CTC/attention beam
-search and greedy CTC. LM and n-gram fusion and time-synchronous decoding
-are not ported yet and raise NotImplementedError.
+search, with shallow fusion of a Transformer LM when given
+``lm_train_config`` and ``lm_file`` (weighted by ``lm_weight``), and
+greedy CTC. n-gram fusion and time-synchronous decoding are not ported
+yet and raise NotImplementedError.
 
 ``inference`` decodes a data dir into Kaldi-style maps, as the JAX
 package's does:
@@ -14,7 +16,8 @@ package's does:
         --data_path_and_name_and_type data/test/wav.scp,speech,sound \
         --asr_train_config exp/asr/config.yaml \
         --asr_model_file exp/asr/checkpoint \
-        [--batch_size 4] [--ctc_weight 1.0] [--device cpu]
+        [--batch_size 4] [--ctc_weight 1.0] [--device cpu] \
+        [--lm_train_config LM/config.yaml --lm_file LM --lm_weight 0.3]
 
 writes ``<output_dir>/1best_recog/{text,token,token_int,score}`` (one
 ``Nbest_recog`` dir per n-best rank) and ``decode_stats.jsonl`` (per
@@ -42,6 +45,7 @@ from espnet_tpu_torch.decode.beam_search import (BeamSearchConfig,
 from espnet_tpu_torch.decode.ctc_greedy import ctc_greedy_decode
 from espnet_tpu_torch.tasks.abs_task import parse_triples, shard_keys
 from espnet_tpu_torch.tasks.asr import ASRTask
+from espnet_tpu_torch.tasks.lm import LMTask
 from espnet_tpu_torch.text.tokenizer import TokenIDConverter, build_tokenizer
 from espnet_tpu_torch.utils.config import parse_cli_overrides
 from espnet_tpu_torch.utils.device import resolve_device
@@ -66,8 +70,6 @@ class Speech2Text:
                  ngram_weight: float = 0.9,
                  time_sync: bool = False,
                  device=None):
-        if lm_train_config is not None or lm_file is not None:
-            raise NotImplementedError("LM fusion is not ported yet")
         if ngram_file is not None:
             raise NotImplementedError("n-gram fusion is not ported yet")
         if time_sync:
@@ -80,11 +82,20 @@ class Speech2Text:
         self.tokenizer = build_tokenizer(
             self.cfg.get("token_type", "char"),
             self.cfg.get("non_linguistic_symbols"))
+        # the JAX class ignores an LM given by one of the two; here that
+        # is an error
+        if (lm_train_config is None) != (lm_file is None):
+            raise ValueError("LM fusion needs lm_train_config and lm_file")
+        self.lm = None
+        if lm_file is not None:
+            self.lm, _ = LMTask.build_model_from_file(
+                lm_train_config, lm_file, self.device)
         self.beam_size = beam_size
         self.ctc_weight = ctc_weight
         self.nbest = nbest
         self.search_config = BeamSearchConfig(
-            beam_size=beam_size, ctc_weight=ctc_weight, length_bonus=penalty,
+            beam_size=beam_size, ctc_weight=ctc_weight, lm_weight=lm_weight,
+            length_bonus=penalty,
             maxlenratio=maxlenratio, minlenratio=minlenratio, nbest=nbest)
 
     @torch.no_grad()
@@ -105,7 +116,7 @@ class Speech2Text:
                     and self.ctc_weight < 1.0)
         if use_beam:
             results = batch_beam_search(self.model, enc, enc_lens,
-                                        self.search_config)
+                                        self.search_config, self.lm)
         else:
             results = self._greedy(enc, enc_lens)
         out = []

@@ -19,22 +19,29 @@ that holds it, not by the flax array's shape (a pointwise kernel
   ``negative_slope``)                  <- the array of the same name as it is
 
 Module paths map one to one, except that flax's ``layerN`` is torch's
-``layers.N``. Unused or missing keys raise. ``state_dict_to_flax`` is the
-inverse: a model's parameters as the flat flax dict, for checkpoints that
-the JAX package reads. ``compose`` roots several flat dicts under
-submodules, so that one model takes the weights of several assets.
+``layers.N``. Unused or missing keys raise. A checkpoint of several
+parts (a GAN's ``generator/params/...`` and ``discriminator/params/...``)
+loads one part by ``subtree``: that part's keys strictly, and a log line
+that names the parts left out and their array counts.
+``state_dict_to_flax`` is the inverse: a model's parameters as the flat
+flax dict, for checkpoints that the JAX package reads. ``compose`` roots
+several flat dicts under submodules, so that one model takes the weights
+of several assets.
 """
 
 from __future__ import annotations
 
+import logging
 import re
-from typing import Callable, Dict, Iterator, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from espnet_tpu_torch.nn.convolution import DepthwiseConv1d, Pointwise
+
+logger = logging.getLogger(__name__)
 
 
 def read_npz(path) -> Dict[str, np.ndarray]:
@@ -92,9 +99,31 @@ def _params(model: nn.Module) -> Iterator[Tuple[str, str, nn.Module, str]]:
             yield key, f"{mod_name}.{name}" if mod_name else name, module, name
 
 
-def load_flax_params(model: torch.nn.Module, flat: Dict[str, np.ndarray]):
-    """Load a flat flax parameter dict into ``model``; raise on keys that
-    are unused or missing, and on shapes that differ."""
+def take_subtree(flat: Dict[str, np.ndarray], root: str):
+    """-> ({"params/...": array} of the keys under ``root/``, the other
+    parts {top-level name: number of arrays})."""
+    inner, left_out = {}, {}
+    for key, value in flat.items():
+        top, _, rest = key.partition("/")
+        if top == root:
+            inner[rest] = value
+        else:
+            left_out[top] = left_out.get(top, 0) + 1
+    if not inner:
+        raise KeyError(f"no parameters under {root!r}; the checkpoint has "
+                       f"{sorted(left_out)}")
+    return inner, left_out
+
+
+def load_flax_params(model: torch.nn.Module, flat: Dict[str, np.ndarray],
+                     subtree: Optional[str] = None):
+    """Load a flat flax parameter dict, or its part under ``subtree``,
+    into ``model``; raise on keys that are unused or missing, and on
+    shapes that differ."""
+    if subtree is not None:
+        flat, left_out = take_subtree(flat, subtree)
+        logger.info("loaded %s; not loaded: %s", subtree, ", ".join(
+            f"{k} ({n} arrays)" for k, n in sorted(left_out.items())))
     flat = {k if k.startswith("params/") else f"params/{k}": v
             for k, v in flat.items()}
     own = model.state_dict()

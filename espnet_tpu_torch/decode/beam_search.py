@@ -5,7 +5,10 @@ The beam is a fixed block of B * beam slots on the device. A hypothesis
 that emits eos moves into a per-utterance store of the best ``beam``
 ended hypotheses and frees its slot; n-best comes from the store. Each
 step: decoder score -> pre-beam top-W -> CTC prefix DP -> per-utterance
-top-k over beam * W -> gather the states. The steps are a Python loop
+top-k over beam * W -> gather the states. With an LM (shallow fusion),
+``lm_weight`` times its log-probabilities joins the decoder's weighted
+scores before the pruning, and its state is gathered by the same source
+rows as the decoder's, in the same step. The steps are a Python loop
 over tensors that stay on the device; it ends when every utterance is
 done (no live slot, or end_detect) or at maxlen.
 
@@ -36,6 +39,7 @@ END_DETECT_D = -10.0
 class BeamSearchConfig:
     beam_size: int = 10
     ctc_weight: float = 0.5
+    lm_weight: float = 0.0
     length_bonus: float = 0.0
     maxlenratio: float = 0.0
     minlenratio: float = 0.0
@@ -62,10 +66,11 @@ def _merge_store(store_score, store_yseq, store_len, scores, yseq, lengths,
 
 
 @torch.no_grad()
-def beam_search(model, enc, enc_lens, config: BeamSearchConfig):
+def beam_search(model, enc, enc_lens, config: BeamSearchConfig, lm=None):
     """enc (B, T, D), enc_lens (B,) -> yseq (B*beam, Lmax) with sos first,
     lengths, scores (the best of each utterance in row b*beam) and the
-    number of steps run."""
+    number of steps run. ``lm``: a scorer (init_carry / score_step /
+    select_state, models/lm.py) over the same token list."""
     B, Tenc, _ = enc.shape
     dev = enc.device
     beam = config.beam_size
@@ -93,6 +98,8 @@ def beam_search(model, enc, enc_lens, config: BeamSearchConfig):
         ctc_logp = pad_log_posteriors(ctc_logp, enc_lens, model.blank_id)
         ctc_logp_rows = ctc_logp.repeat_interleave(beam, dim=0)
         ctc_state = init_state(ctc_logp_rows, model.blank_id)
+    if lm is not None:
+        lm_state = lm.init_carry(rows, maxlen + 1, device=dev)
 
     Lmax = maxlen + 2
     ar_rows = torch.arange(rows, device=dev)
@@ -118,6 +125,9 @@ def beam_search(model, enc, enc_lens, config: BeamSearchConfig):
                 if step == 0 else yseq[:, step])
         att_logp, dec_state = model.decoder_score_step(last, step, dec_state)
         weighted = att_w * att_logp
+        if lm is not None:
+            lm_logp, lm_state = lm.score_step(last, step, lm_state)
+            weighted = weighted + config.lm_weight * lm_logp
         # eos is barred before minlen and forced at each row's maxlen
         allow_eos = lengths >= minlens
         force_eos = (step + 1) >= maxlens
@@ -186,6 +196,8 @@ def beam_search(model, enc, enc_lens, config: BeamSearchConfig):
         if use_ctc:
             ctc_state = select_state(ctc_state, r_nb_new, r_b_new, log_psi,
                                      src_row, cand_col, new_tok)
+        if lm is not None:
+            lm_state = lm.select_state(lm_state, src_row)
         step += 1
 
     # rows still live at the end get eos appended and compete for the store
@@ -202,12 +214,13 @@ def beam_search(model, enc, enc_lens, config: BeamSearchConfig):
             scores_out.reshape(rows), step)
 
 
-def batch_beam_search(model, enc, enc_lens, config: BeamSearchConfig):
+def batch_beam_search(model, enc, enc_lens, config: BeamSearchConfig,
+                      lm=None):
     """Decode a batch -> per utterance, its n-best [(token ids, score)]
     with sos and the final eos stripped."""
     B = enc.shape[0]
     beam = config.beam_size
-    yseq, lengths, scores, _ = beam_search(model, enc, enc_lens, config)
+    yseq, lengths, scores, _ = beam_search(model, enc, enc_lens, config, lm)
     yseq, lengths, scores = (yseq.cpu().numpy(), lengths.cpu().numpy(),
                              scores.cpu().numpy())
     results = []

@@ -1,16 +1,18 @@
 """Transformer encoder (counterpart of espnet_tpu/nn/transformer.py): the
 position-wise feed-forward, the encoder layer and the encoder.
 
-The encoder embeds with ``conv2d`` (Conv2dSubsampling x4) or ``linear``
-(Dense -> LayerNorm -> dropout -> ReLU), adds the absolute positional
-encoding and runs N layers of self-attention and feed-forward with
-residuals, normalised before (``normalize_before``, then a LayerNorm after
-the stack) or after each sub-block. With ``attention_window`` (the
-Longformer encoder) each frame attends the valid frames within
-+-window of it, through the banded attention kernel. LayerNorms use flax's
-epsilon, 1e-6. In training, dropout acts inside the feed-forward after the
-activation, on each sub-block's output before its residual add, and on the
-positional encoding, at the JAX package's places.
+The encoder embeds with ``conv2d`` (Conv2dSubsampling x4), ``linear``
+(Dense -> LayerNorm -> dropout -> ReLU) or ``embed`` (a token embedding
+of token-id inputs (B, T), as the VITS text encoder's), adds the
+absolute positional encoding and runs N layers of self-attention and
+feed-forward with residuals, normalised before (``normalize_before``,
+then a LayerNorm after the stack) or after each sub-block. With
+``attention_window`` (the Longformer encoder) each frame attends the
+valid frames within +-window of it, through the banded attention kernel.
+LayerNorms use flax's epsilon, 1e-6. In training, dropout acts inside the
+feed-forward after the activation, on each sub-block's output before its
+residual add, and on the positional encoding, at the JAX package's
+places.
 """
 
 from __future__ import annotations
@@ -98,9 +100,11 @@ class TransformerEncoder(nn.Module):
             self.embed = nn.Linear(input_size, output_size)
             self.embed_norm = nn.LayerNorm(output_size, eps=LN_EPS)
             self.embed_dropout = nn.Dropout(dropout_rate)
+        elif input_layer == "embed":
+            self.embed = nn.Embedding(input_size, output_size)
         else:
             raise NotImplementedError(f"input_layer {input_layer!r}: the "
-                                      f"port has conv2d and linear")
+                                      f"port has conv2d, linear and embed")
         self.input_layer = input_layer
         self.pos_enc = PositionalEncoding(output_size,
                                           dropout_rate=positional_dropout_rate)
@@ -115,9 +119,12 @@ class TransformerEncoder(nn.Module):
         self.attention_window = attention_window
 
     def forward(self, xs: torch.Tensor, ilens: torch.Tensor):
-        """(B, T, F) features -> (B, T', D), lengths (B,)."""
+        """(B, T, F) features, or (B, T) token ids with ``embed`` ->
+        (B, T', D), lengths (B,)."""
         if self.input_layer == "conv2d":
             xs, olens = self.embed(xs, ilens)
+        elif self.input_layer == "embed":
+            xs, olens = self.embed(xs), ilens
         else:
             xs = F.relu(self.embed_dropout(self.embed_norm(self.embed(xs))))
             olens = ilens

@@ -18,6 +18,15 @@ ASSET = Path(__file__).resolve().parents[1] / "assets" / "synth_asr_flagship"
 N_UTTS = 3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread per worker: the suite runs workers side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def flagship():
     kw = dict(asr_train_config=ASSET / "config.yaml", asr_model_file=ASSET,

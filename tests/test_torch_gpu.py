@@ -833,3 +833,73 @@ def test_joint_model_decodes_and_trains_through_the_kernels():
     assert _cuda.LAUNCHES["flash_attn_fwd"] == 2
     assert _cuda.LAUNCHES["flash_attn_bwd"] == 4
     assert all(p.grad is not None for p in model.enh.parameters())
+
+
+LM_ASSET = Path(__file__).resolve().parents[1] / "assets" / "synth_lm"
+TTS_ASSET = Path(__file__).resolve().parents[1] / "assets" / "synth_tts_vits"
+
+
+@pytest.mark.gpu
+def test_lm_fused_decode_on_the_card_matches_the_cpu():
+    # the flagship with the LM asset fused at 0.3 on three test
+    # utterances: the same ids on the card as on the CPU, K1 and K2
+    # launched as without the LM (the LM's attention is plain torch)
+    _cuda_or_skip()
+    from espnet_tpu_torch.bin.asr_inference import Speech2Text
+    from espnet_tpu_torch.data.synth_speech import SynthSpeechCorpus
+    utts = [SynthSpeechCorpus().utterance("test", i) for i in range(3)]
+    speech = np.zeros((3, max(len(w) for w, _, _ in utts)), np.float32)
+    for i, (w, _, _) in enumerate(utts):
+        speech[i, :len(w)] = w
+    lengths = [len(w) for w, _, _ in utts]
+    kw = dict(asr_train_config=ASSET / "config.yaml", asr_model_file=ASSET,
+              beam_size=10, ctc_weight=0.3,
+              lm_train_config=LM_ASSET / "config.yaml", lm_file=LM_ASSET,
+              lm_weight=0.3)
+    _cuda.reset_launch_counts()
+    out = Speech2Text(**kw)(speech, lengths)
+    assert _cuda.LAUNCHES == {"flash_attn_fwd": 6, "flash_attn_bwd": 0,
+                              "logmel_fwd": 1, "rnnt_alpha": 0,
+                              "rnnt_beta": 0, "banded_attn_fwd": 0,
+                              "banded_attn_bwd": 0}
+    ref = Speech2Text(device="cpu", **kw)(speech, lengths)
+    assert [n[0][2] for n in out] == [n[0][2] for n in ref]
+
+
+@pytest.mark.gpu
+def test_vits_on_the_card_matches_the_cpu():
+    # the VITS asset on one text at max_frames 640 and one numpy noise
+    # draw: the same durations on the card and the CPU, the wave within
+    # 1e-4 of its largest sample (fp32 sums in another order through 4
+    # text blocks, 4 couplings and 43 generator convolutions; TF32 off),
+    # the same bits twice on the card, and no kernel launched
+    _cuda_or_skip()
+    from espnet_tpu_torch.tasks.gan_tts import GANTTSTask
+    card, cfg = GANTTSTask.build_model_from_file(
+        TTS_ASSET / "config.yaml", TTS_ASSET)
+    cpu, _ = GANTTSTask.build_model_from_file(TTS_ASSET / "config.yaml",
+                                              TTS_ASSET, "cpu")
+    ids = GANTTSTask.build_preprocess_fn(cfg, train=False)(
+        "x", {"text": "deka munto ra", "speech": np.zeros(512, np.float32)}
+    )["text"]
+    text = torch.zeros(1, 64, dtype=torch.int64)
+    text[0, :len(ids)] = torch.from_numpy(ids)
+    lens = torch.tensor([len(ids)])
+    noise = torch.from_numpy(np.random.RandomState(0).randn(
+        1, 640, 192).astype(np.float32))
+    out = {}
+    _cuda.reset_launch_counts()
+    for name, model, dev in (("card", card, "cuda"), ("again", card, "cuda"),
+                             ("cpu", cpu, "cpu")):
+        with torch.no_grad():
+            dur = model.generator.prior_and_durations(text.to(dev),
+                                                      lens.to(dev))[2]
+            wav, olens = model.decode(text.to(dev), lens.to(dev),
+                                      noise=noise.to(dev), max_frames=640)
+        out[name] = (dur.cpu(), wav.cpu(), int(olens[0]))
+    assert not any(_cuda.LAUNCHES.values()), _cuda.LAUNCHES
+    assert torch.equal(out["card"][0], out["cpu"][0])
+    assert out["card"][2] == out["cpu"][2] > 0
+    assert torch.equal(out["card"][1], out["again"][1])
+    n = out["cpu"][2] * cfg["hop_length"]
+    assert _relative_err(out["card"][1][0, :n], out["cpu"][1][0, :n]) <= 1e-4

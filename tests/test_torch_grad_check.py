@@ -32,6 +32,18 @@ ROOT = Path(__file__).resolve().parents[1]
 FLAGSHIP = ROOT / "assets" / "synth_asr_flagship"
 
 
+@pytest.fixture
+def one_torch_thread():
+    """One torch thread per worker: the suite runs workers side by side.
+    Not for test_float64_leg_is_float64_and_pinned_as_the_fp32_leg, whose
+    fp32 sums keep the default thread count's order."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_take_side_puts_each_unit_on_the_wanted_side(dtype):
     # magnitudes from 1e-9 to 10: a negative unit wanted above 0 must come
@@ -53,6 +65,7 @@ def test_take_side_puts_each_unit_on_the_wanted_side(dtype):
     assert torch.equal(out.grad, w)
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 def test_pin_moves_only_rounding_and_its_bound_catches_a_wrong_pin():
     # a linear's outputs in float64 pinned to its fp32 sides on the same
     # inputs move only units within rounding of 0, if any, each module's
@@ -123,6 +136,7 @@ def test_float64_leg_is_float64_and_pinned_as_the_fp32_leg():
     assert all(row[2] <= grad_pin.MOVE_TOL for row in moved.values()), moved
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 def test_attention_pin_moves_only_rounding_and_restores_the_modules():
     # the flagship on two held-out utterances: an fp32 forward notes each
     # rel-pos self-attention's inputs, a float64 forward takes them,
@@ -160,6 +174,7 @@ def test_attention_pin_moves_only_rounding_and_restores_the_modules():
                if isinstance(m, RelPositionMultiHeadedAttention))
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 def test_frontend_keeps_a_float64_wave_float64():
     # the float64 leg's frontend: a float64 wave gives float64 log-mel
     # features (fused rule and plain STFT path both), within 1e-5 of
@@ -181,6 +196,7 @@ def test_frontend_keeps_a_float64_wave_float64():
         assert x.grad.dtype == torch.float64
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 def test_losses_keep_float64_and_match_jax():
     # the float64 leg's losses: CTC, label smoothing and RNN-T on float64
     # logits stay float64, and match the JAX package's fp32 losses at the
@@ -232,6 +248,7 @@ def test_losses_keep_float64_and_match_jax():
     np.testing.assert_allclose(g.numpy(), ref_g, atol=2e-5, rtol=0)
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 def test_prediction_network_carry_takes_the_weights_dtype():
     from espnet_tpu_torch.models.transducer import RNNDecoder
     dec = RNNDecoder(7, hidden_size=8, num_layers=2)

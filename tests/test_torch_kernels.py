@@ -44,6 +44,15 @@ ATOL = 2e-5
 LOGMEL_ATOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread per worker: the suite runs workers side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _attention_case(rng, B, H, Tq, Tk, d, bias_kind):
     q, k, v = (rng.randn(B, H, T, d).astype(np.float32)
                for T in (Tq, Tk, Tk))

@@ -42,6 +42,7 @@ from espnet_tpu_torch.ops.banded_attention import (banded_attention,
 from espnet_tpu_torch.tasks.asr import build_model, read_token_list
 from espnet_tpu_torch.train.checkpoint import save_checkpoint
 from espnet_tpu_torch.utils.config import dump_yaml, load_yaml
+from tests.torch_streaming_models import flax_params
 
 FLAGSHIP = (Path(__file__).resolve().parents[1] / "assets"
             / "synth_asr_flagship")
@@ -216,10 +217,12 @@ def test_encoder_matches_jax_on_valid_frames(window, normalize_before,
     conf = dict(ENC, input_layer=input_layer,
                 normalize_before=normalize_before, attention_window=window)
     jenc = jax_transformer.TransformerEncoder(input_size=80, **conf)
-    params = jenc.init(jax.random.PRNGKey(0), jnp.asarray(feats),
-                       jnp.asarray(lens))
+    # init and apply compiled whole: faster than op-by-op dispatch
+    params = jax.jit(jenc.init)(jax.random.PRNGKey(0), jnp.asarray(feats),
+                                jnp.asarray(lens))
     flat, params = _perturbed(params)
-    ref, ref_lens = jenc.apply(params, jnp.asarray(feats), jnp.asarray(lens))
+    ref, ref_lens = jax.jit(jenc.apply)(params, jnp.asarray(feats),
+                                        jnp.asarray(lens))
     enc = convert.load_flax_params(transformer.TransformerEncoder(80, **conf),
                                    flat).eval()
     with torch.no_grad():
@@ -271,9 +274,7 @@ def small_cfg(**model_conf):
 def small():
     cfg = small_cfg()
     jmodel = JaxASRTask.build_model(cfg)
-    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0),
-                                  **JaxASRTask.example_batch(cfg))
-    flat, params = _perturbed(params)
+    flat, params = flax_params(jmodel, **JaxASRTask.example_batch(cfg))
     return cfg, jmodel, params, flat
 
 
@@ -364,9 +365,9 @@ def slice_cfg():
 def test_slice_config_full_width_eval_loss(record_property):
     cfg = slice_cfg()
     jmodel = JaxASRTask.build_model(cfg)
-    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0),
-                                  **JaxASRTask.example_batch(cfg))
-    flat, params = _perturbed(params, seed=1)
+    # the tree filled at init scale from a numpy seed (nothing compiled)
+    flat, params = flax_params(jmodel, **JaxASRTask.example_batch(cfg),
+                               seed=1)
     # 17 s and 13 s: T' = 531 and 406 frames, the band at 64 restricts
     batch = _batch(lens=(272000, 208000), text_lens=(40, 30), seed=2)
     ref_loss, ref_stats, _ = jax.jit(

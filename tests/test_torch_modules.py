@@ -1,6 +1,8 @@
 """Each module of the port's ASR slice against its JAX counterpart, on the
 CPU, at a small width (2 conformer blocks and 2 decoder layers, d=64),
-with weights from a JAX ``model.init`` carried across by ``convert.py``.
+with weights that fill the JAX model's parameter tree from a numpy seed
+(``tests/torch_streaming_models.py:flax_params``), carried across by
+``convert.py``.
 
 Inputs are made with numpy from a seed and fed to both. Outputs are fp32
 computed in a different order by the two frameworks; tolerances are a
@@ -14,7 +16,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from flax.traverse_util import flatten_dict, unflatten_dict
 
 from espnet_tpu.decode import ctc_prefix as jax_ctc_prefix
 from espnet_tpu.decode.beam_search import \
@@ -44,11 +45,21 @@ from espnet_tpu_torch.nn.attention import rel_shift
 from espnet_tpu_torch.nn.embedding import (PositionalEncoding,
                                            RelPositionalEncoding)
 from espnet_tpu_torch.tasks.asr import build_model, read_token_list
+from tests.torch_streaming_models import flax_params
 
 FLAGSHIP = (Path(__file__).resolve().parents[1] / "assets"
             / "synth_asr_flagship")
 D = 64
 ATOL = 1e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread per worker: the suite runs workers side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _t(x):
@@ -89,18 +100,19 @@ def small():
         "model_conf": {"ctc_weight": 0.3},
     }
     jmodel = ASRTask.build_model(cfg)
-    params = jmodel.init(jax.random.PRNGKey(0),
-                         **ASRTask.example_batch(cfg))
-    # move every weight off its init value (zero biases, unit scales) so
+    # the JAX tree (eval_shape of its init: nothing compiled) filled at
+    # init scale from a numpy seed, no bias zero and no scale one, so
     # that each layout mapping is exercised
-    rng = np.random.RandomState(0)
-    flat = {k: (np.asarray(v) + 0.05 * rng.randn(*np.shape(v))
-                ).astype(np.float32)
-            for k, v in flatten_dict(params, sep="/").items()}
-    params = unflatten_dict({tuple(k.split("/")): jnp.asarray(v)
-                             for k, v in flat.items()})
+    flat, params = flax_params(jmodel, **ASRTask.example_batch(cfg))
     tmodel = convert.load_flax_params(build_model(cfg), flat).eval()
     return jmodel, params, tmodel
+
+
+def _jit(module, method):
+    """module.apply(params, *args, method=method), compiled whole: faster
+    than JAX's op-by-op dispatch."""
+    return jax.jit(lambda params, *args: module.apply(params, *args,
+                                                      method=method))
 
 
 def _sub(params, *path):
@@ -195,9 +207,9 @@ def test_conformer_block_and_its_parts(small, parity):
 def test_encoder_and_ctc_head(small, parity):
     jmodel, params, tmodel = small
     x, lens = _speech(np.random.RandomState(6), [7000, 4500])
-    enc, enc_lens = jmodel.apply(params, jnp.asarray(x), jnp.asarray(lens),
-                                 method=jmodel.encode)
-    logits = jmodel.apply(params, enc, method=jmodel.ctc_logits)
+    enc, enc_lens = _jit(jmodel, jmodel.encode)(params, jnp.asarray(x),
+                                                jnp.asarray(lens))
+    logits = _jit(jmodel, jmodel.ctc_logits)(params, enc)
     tenc, tenc_lens = tmodel.encode(_t(x), _t(lens))
     np.testing.assert_array_equal(tenc_lens.numpy(), np.asarray(enc_lens))
     parity("ConformerEncoder", tenc, enc)
@@ -215,10 +227,10 @@ def test_decoder_init_score_and_select(small, parity):
                          B * beam, L, method=jmodel.decoder_init_state)
     tstate = tmodel.decoder_init_state(_t(mem), _t(mlens), B * beam, L)
     _close(tstate["enc_k"], state["enc_k"])
+    score_step = _jit(jmodel, jmodel.decoder_score_step)
     for step in range(4):
         tok = rng.randint(0, 25, size=B * beam)
-        logp, state = jmodel.apply(params, jnp.asarray(tok), step, state,
-                                   method=jmodel.decoder_score_step)
+        logp, state = score_step(params, jnp.asarray(tok), step, state)
         tlogp, tstate = tmodel.decoder_score_step(_t(tok), step, tstate)
         parity(f"TransformerDecoder.score_step[{step}]", tlogp, logp)
         # reorder rows within each utterance's beam block
@@ -240,20 +252,20 @@ def test_ctc_prefix_scorer(parity):
     tx = ctc_prefix.pad_log_posteriors(_t(logp), _t(lens))
     _close(tx, x, atol=0)
     st, tst = jax_ctc_prefix.init_state(x), ctc_prefix.init_state(tx)
+    score = jax.jit(jax_ctc_prefix.score_candidates, static_argnums=(4, 5))
+    select = jax.jit(jax_ctc_prefix.select_state)
     for _ in range(3):
         cand = np.stack([rng.choice(np.arange(V), W, replace=False)
                          for _ in range(rows)])
-        out = jax_ctc_prefix.score_candidates(st, jnp.asarray(cand), x,
-                                              jnp.asarray(lens), 0, V - 1)
+        out = score(st, jnp.asarray(cand), x, jnp.asarray(lens), 0, V - 1)
         tout = ctc_prefix.score_candidates(tst, _t(cand), tx, _t(lens), 0,
                                            V - 1)
         for a, b in zip(tout, out):
             _close(a, b, atol=1e-4)
         src, col = rng.randint(rows, size=rows), rng.randint(W, size=rows)
         tok = cand[src, col]
-        st = jax_ctc_prefix.select_state(st, out[2], out[3], out[1],
-                                         jnp.asarray(src), jnp.asarray(col),
-                                         jnp.asarray(tok))
+        st = select(st, out[2], out[3], out[1], jnp.asarray(src),
+                    jnp.asarray(col), jnp.asarray(tok))
         tst = ctc_prefix.select_state(tst, tout[2], tout[3], tout[1],
                                       _t(src), _t(col), _t(tok))
         parity("ctc_prefix.score", tst.score, st.score, atol=1e-4)

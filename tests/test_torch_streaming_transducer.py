@@ -6,6 +6,8 @@ transducer (d = 32, 2 blocks, chunk 4, 2 left chunks, kernel 5, an LSTM
 prediction network of 32, aux CTC) saved as the committed assets are.
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -134,12 +136,30 @@ def test_transducer_inference_writes_the_jax_packages_files(tmp_path,
 
 def test_entry_points_need_a_card_or_the_cpu(monkeypatch, transducer,
                                              tmp_path):
+    from espnet_tpu_torch.bin import lm_calc_perplexity, tts_inference
+    from espnet_tpu_torch.bin.asr_inference import Speech2Text
+    from espnet_tpu_torch.tasks.gan_tts import GANTTSTask
+    from espnet_tpu_torch.tasks.lm import LMTask
+    assets = Path(__file__).resolve().parents[1] / "assets"
+    lm, tts = assets / "synth_lm", assets / "synth_tts_vits"
+    flagship = assets / "synth_asr_flagship"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (
             lambda: asr_transducer_inference.Speech2TextTransducerStreaming(
                 transducer / "config.yaml", transducer),
             lambda: asr_transducer_inference.inference(
                 tmp_path, [], transducer / "config.yaml", transducer),
-            StreamingFeatureExtractor):
+            StreamingFeatureExtractor,
+            lambda: LMTask.build_model_from_file(lm / "config.yaml", lm),
+            lambda: lm_calc_perplexity.calc_perplexity(
+                lm / "config.yaml", lm, []),
+            lambda: Speech2Text(flagship / "config.yaml", flagship,
+                                lm_train_config=lm / "config.yaml",
+                                lm_file=lm),
+            lambda: GANTTSTask.build_model_from_file(tts / "config.yaml",
+                                                     tts),
+            lambda: tts_inference.Text2Speech(tts / "config.yaml", tts),
+            lambda: tts_inference.inference(tmp_path, [],
+                                            tts / "config.yaml", tts)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()

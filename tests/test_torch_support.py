@@ -30,6 +30,15 @@ FLAGSHIP = ROOT / "assets" / "synth_asr_flagship"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "yaml", "espnet_tpu"}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread per worker: the suite runs workers side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _imported_modules(path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
@@ -161,9 +170,18 @@ def test_asset_files_next_to_config_win_over_configured_paths(tmp_path):
     assert list(model.token_list) == read_token_list(FLAGSHIP / "tokens.txt")
 
 
-@pytest.mark.parametrize("kwargs", [{"lm_file": "x"}, {"ngram_file": "x"},
+@pytest.mark.parametrize("kwargs", [{"lm": "seq_rnn"}, {"ngram_file": "x"},
                                     {"time_sync": True}])
-def test_speech2text_unported_options_raise(kwargs):
+def test_speech2text_unported_options_raise(kwargs, tmp_path):
+    """The Transformer LM fuses (tests/test_torch_lm.py); an RNN LM, n-gram
+    fusion and time-synchronous decoding raise."""
+    if "lm" in kwargs:
+        lm_dir = FLAGSHIP.parent / "synth_lm"
+        cfg = dict(load_yaml(lm_dir / "config.yaml"), **kwargs)
+        (tmp_path / "config.yaml").write_text(yaml.safe_dump(cfg))
+        shutil.copy(lm_dir / "tokens.txt", tmp_path)
+        kwargs = {"lm_train_config": tmp_path / "config.yaml",
+                  "lm_file": lm_dir}
     with pytest.raises(NotImplementedError):
         Speech2Text(FLAGSHIP / "config.yaml", FLAGSHIP, device="cpu",
                     **kwargs)

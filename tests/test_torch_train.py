@@ -16,7 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from flax.traverse_util import flatten_dict, unflatten_dict
+from flax.traverse_util import flatten_dict
 
 from espnet_tpu.bin.asr_inference import Speech2Text as JaxSpeech2Text
 from espnet_tpu.nn.decoder import TransformerDecoder as JaxDecoder
@@ -39,6 +39,7 @@ from espnet_tpu_torch.tasks.asr import ASRTask, build_model, read_token_list
 from espnet_tpu_torch.text.tokenizer import CharTokenizer, TokenIDConverter
 from espnet_tpu_torch.train.optim import build_optimizer
 from espnet_tpu_torch.train.trainer import make_train_step
+from tests.torch_streaming_models import flax_params
 
 FLAGSHIP = (Path(__file__).resolve().parents[1] / "assets"
             / "synth_asr_flagship")
@@ -79,18 +80,12 @@ def small_cfg(**encoder_extra):
 
 @pytest.fixture(scope="module")
 def small():
-    """A JAX model with its params moved off their init values (so that
-    zero biases and unit scales take part), and the flat flax dict."""
+    """A JAX model and its parameter tree filled at init scale from a
+    numpy seed (nothing compiled; no bias zero and no scale one, so that
+    each takes part), and the flat flax dict."""
     cfg = small_cfg()
     jmodel = JaxASRTask.build_model(cfg)
-    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0),
-                                  **JaxASRTask.example_batch(cfg))
-    rng = np.random.RandomState(0)
-    flat = {k: (np.asarray(v) + 0.05 * rng.randn(*np.shape(v))
-                ).astype(np.float32)
-            for k, v in flatten_dict(params, sep="/").items()}
-    params = unflatten_dict({tuple(k.split("/")): jnp.asarray(v)
-                             for k, v in flat.items()})
+    flat, params = flax_params(jmodel, **JaxASRTask.example_batch(cfg))
     return cfg, jmodel, params, flat
 
 

@@ -47,6 +47,7 @@ from espnet_tpu_torch.tasks.asr_transducer import (ASRTransducerTask,
 from espnet_tpu_torch.train.checkpoint import load_checkpoint
 from espnet_tpu_torch.train.trainer import evaluate
 from espnet_tpu_torch.utils.config import dump_yaml
+from tests.torch_streaming_models import flax_params
 
 ASSET = (Path(__file__).resolve().parents[1] / "assets"
          / "synth_asr_transducer")
@@ -103,14 +104,15 @@ def _rnnt_case(name):
 def test_rnnt_loss_and_sweeps_match_jax(name, record_property):
     logits, labels, tl, ul = _rnnt_case(name)
     jargs = [jnp.asarray(a) for a in (labels, tl, ul)]
-    ref = np.asarray(jax_rnnt_loss(jnp.asarray(logits), *jargs,
-                                   reduction="none"))
-    pallas = np.asarray(rnnt_loss_pallas(jnp.asarray(logits), *jargs,
-                                         reduction="none"))
-    ref_g = np.asarray(jax.grad(lambda x: jax_rnnt_loss(x, *jargs))(
+    # each JAX function compiled whole: faster than op-by-op dispatch
+    ref = np.asarray(jax.jit(lambda x: jax_rnnt_loss(
+        x, *jargs, reduction="none"))(jnp.asarray(logits)))
+    pallas = np.asarray(jax.jit(lambda x: rnnt_loss_pallas(
+        x, *jargs, reduction="none"))(jnp.asarray(logits)))
+    ref_g = np.asarray(jax.jit(jax.grad(lambda x: jax_rnnt_loss(x, *jargs)))(
         jnp.asarray(logits)))
-    pallas_g = np.asarray(jax.grad(lambda x: rnnt_loss_pallas(x, *jargs))(
-        jnp.asarray(logits)))
+    pallas_g = np.asarray(jax.jit(jax.grad(
+        lambda x: rnnt_loss_pallas(x, *jargs)))(jnp.asarray(logits)))
     targs = [_t(a).long() for a in (labels, tl, ul)]
     for fn in (rnnt.rnnt_loss, rnnt.rnnt_loss_plain):
         x = _t(logits).requires_grad_()
@@ -172,10 +174,10 @@ def test_causal_conv_module_matches_jax(record_property):
     x = rng.randn(3, 13, 32).astype(np.float32)
     valid = np.arange(13)[None] < np.array([13, 6, 9])[:, None]
     jmod = jax_streaming.CausalConvModule(32, 5)
-    params = jmod.init(jax.random.PRNGKey(0), jnp.asarray(x),
-                       jnp.asarray(valid))
+    params = jax.jit(jmod.init)(jax.random.PRNGKey(0), jnp.asarray(x),
+                                jnp.asarray(valid))
     flat, params = _perturbed(params)
-    ref, _ = jmod.apply(params, jnp.asarray(x), jnp.asarray(valid))
+    ref, _ = jax.jit(jmod.apply)(params, jnp.asarray(x), jnp.asarray(valid))
     ours = _load(streaming_encoder.CausalConvModule(32, 5), flat)(
         _t(x), _t(valid))
     # two pointwise products of 32 terms and a 5-tap conv: outputs O(1)
@@ -193,10 +195,12 @@ def test_streaming_encoder_matches_jax_on_every_frame(record_property):
     feats = rng.randn(3, 80, 80).astype(np.float32)
     lens = np.array([80, 14, 50], np.int32)
     jenc = jax_streaming.StreamingConformerEncoder(input_size=80, **ENC_CONF)
-    params = jenc.init(jax.random.PRNGKey(0), jnp.asarray(feats),
-                       jnp.asarray(lens))
+    # init and apply compiled whole: faster than op-by-op dispatch
+    params = jax.jit(jenc.init)(jax.random.PRNGKey(0), jnp.asarray(feats),
+                                jnp.asarray(lens))
     flat, params = _perturbed(params)
-    ref, ref_lens = jenc.apply(params, jnp.asarray(feats), jnp.asarray(lens))
+    ref, ref_lens = jax.jit(jenc.apply)(params, jnp.asarray(feats),
+                                        jnp.asarray(lens))
     enc = _load(streaming_encoder.StreamingConformerEncoder(80, **ENC_CONF),
                 flat).eval()
     with torch.no_grad():
@@ -216,8 +220,9 @@ def test_rnn_decoder_and_step_and_joint_match_jax(record_property):
     rng = np.random.RandomState(3)
     labels = rng.randint(0, V, (3, 7)).astype(np.int32)
     jdec = JaxRNNDecoder(V, hidden_size=16, num_layers=2, embed_size=12)
-    params = jdec.init(jax.random.PRNGKey(0), jnp.asarray(labels))
+    params = jax.jit(jdec.init)(jax.random.PRNGKey(0), jnp.asarray(labels))
     flat, params = _perturbed(params)
+    jstep = jax.jit(lambda p, c, y: jdec.apply(p, c, y, method=jdec.step))
     dec = _load(RNNDecoder(V, hidden_size=16, num_layers=2, embed_size=12),
                 flat).eval()
     ref = np.asarray(jdec.apply(params, jnp.asarray(labels)))
@@ -227,9 +232,7 @@ def test_rnn_decoder_and_step_and_joint_match_jax(record_property):
         jcarry = jdec.apply(params, 3, method=jdec.init_carry)
         for u in range(labels.shape[1]):
             out, carry = dec.step(carry, _t(labels[:, u]).long())
-            jout, jcarry = jdec.apply(params, jcarry,
-                                      jnp.asarray(labels[:, u]),
-                                      method=jdec.step)
+            jout, jcarry = jstep(params, jcarry, jnp.asarray(labels[:, u]))
             # tanh-bounded states through two cells
             np.testing.assert_allclose(out.numpy(), np.asarray(jout),
                                        atol=1e-6, rtol=0)
@@ -279,9 +282,7 @@ def small_cfg():
 def small():
     cfg = small_cfg()
     jmodel = JaxTransducerTask.build_model(cfg)
-    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0),
-                                  **JaxTransducerTask.example_batch(cfg))
-    flat, params = _perturbed(params)
+    flat, params = flax_params(jmodel, **JaxTransducerTask.example_batch(cfg))
     model = _load(build_model(cfg), flat).eval()
     return cfg, jmodel, params, flat, model
 
@@ -477,15 +478,26 @@ def _ctc_case(name):
     return logits, hlens, ys, ylens
 
 
+@jax.jit
+def _jax_ctc(logits, hlens, ys, ylens, weights):
+    """((weighted sum, nll), gradient) of the JAX package's CTC, compiled
+    whole (faster than op-by-op dispatch, and once for cases of one
+    shape)."""
+    def loss(x):
+        nll = jax_losses.ctc_nll(x, hlens, ys, ylens, 0)
+        return jnp.sum(weights * nll), nll
+    (value, nll), grad = jax.value_and_grad(loss, has_aux=True)(logits)
+    return (value, nll), grad
+
+
 @pytest.mark.parametrize("name", ["rand", "repeats", "impossible",
                                   "single"])
 def test_ctc_gradient_is_the_closed_form_of_the_jax_package(name):
     logits, hlens, ys, ylens = _ctc_case(name)
     args = [jnp.asarray(a.astype(np.int32)) for a in (hlens, ys, ylens)]
     weights = np.linspace(0.5, 1.5, len(hlens)).astype(np.float32)
-    ref, ref_g = jax.value_and_grad(
-        lambda x: jnp.sum(jnp.asarray(weights) * jax_losses.ctc_nll(
-            x, *args, 0)))(jnp.asarray(logits))
+    (ref, ref_nll), ref_g = _jax_ctc(jnp.asarray(logits), *args,
+                                     jnp.asarray(weights))
     x = _t(logits).requires_grad_()
     nll = losses.ctc_nll(x, _t(hlens), _t(ys), _t(ylens))
     loss = (_t(weights) * nll).sum()
@@ -502,9 +514,7 @@ def test_ctc_gradient_is_the_closed_form_of_the_jax_package(name):
     (g,) = torch.autograd.grad(loss, (x,))
     ok = nll.detach().numpy() < 1e29   # impossible ones saturate near 1e30
     np.testing.assert_allclose(nll.detach().numpy()[ok],
-                               np.asarray(jax_losses.ctc_nll(
-                                   jnp.asarray(logits), *args, 0))[ok],
-                               rtol=1e-5)
+                               np.asarray(ref_nll)[ok], rtol=1e-5)
     # the same closed form; the port's recursions in fp64, the JAX
     # package's in fp32: gradients of O(0.1) within 1e-5
     np.testing.assert_allclose(g.numpy(), np.asarray(ref_g), atol=1e-5,
