@@ -170,6 +170,27 @@ Phases, each printing one JSON line:
     Text2Speech with its own torch.Generator at 0.333 over the 50 texts
     (WER beside RESULTS.json's, not gated); and the CLI
     (bin/tts_inference.py:main) on 4 texts, its WAVs equal to the API's.
+27. vits_parity, vits_train, vits_train_checks: the VITS recipe's
+    speaker-0 data (160 train, 60 valid utterances) and
+    assets/synth_tts_vits, both parts, with dropout off and numpy draws
+    (vits_draws): the first train batch's loss terms and the two turns of
+    two GAN steps within 1e-4 relative of the JAX package's
+    (scripts/jax_vits_train_reference.json), the MAS durations equal or
+    each difference listed with its closest call (below 1e-3), the 60
+    valid utterances' terms; then bin/gan_tts_train.py with the config as
+    it is: 10 steps (per step every loss term, both gradient norms and
+    skip flags, K2 launches, step ms, the alignment searches' ms by CUDA
+    events), the valid loss before and after, a checkpoint reload to the
+    same valid loss, peak memory; the round trip of phase 26 at noise
+    scale 0.333 with the trained generator (its WER beside the asset's
+    34.98%, no limit); two 3-step runs and a resumed one bit-identical;
+    the grad check of both turns (leaky ReLU kinks, the +-7 clips and the
+    alignment path pinned);
+28. gan_vocoder_train: bin/gan_vocoder_train.py on the vocoder recipe's
+    config (egs/synth_asr/tts1/run_tts_loop.py stage 4) from the seed
+    over the same waves: 10 steps at batch 16 (finite, unskipped, K2 4 a
+    step), the valid loss reloaded, determinism and the grad check as
+    phase 27's.
 
 Then the nvidia-smi line, one {"kernels": [...]} line (errors, times and
 bounds of phase 4, launches from the paths that run each kernel; a bound
@@ -348,6 +369,59 @@ TTS_CPU_UTTS = 8        # card against CPU waves on the first 8 texts
 TTS_WAVE_TOL = 1e-4     # of the largest sample, at equal durations
 FLOW_TOL = 1e-5         # the flow's forward after its inverse, of |z_p|
 N_CLI_TTS = 4
+# VITS training (phase 27) and the GAN vocoder (phase 28)
+VITS_N_TRAIN = 160      # the recipe's speaker-0 corpus, cut to 10 batches
+VITS_N_VALID = 60
+VITS_STEPS = 10
+VITS_DRAW_SEED = 2000   # the i-th batch's draws: RandomState(2000 + i)
+VALID_DRAW_OFFSET = 100
+VITS_REF = ROOT / "scripts" / "jax_vits_train_reference.json"
+VITS_LOSS_TOL = 1e-4    # each loss term against the JAX package's, relative
+MAS_MARGIN_TOL = 1e-3   # a duration may differ only at a closer call
+VITS_GRAD_BATCH = 4
+K2_MEL_LOSS_TOL = 1e-4  # the mel loss through K2 against its plain version
+MEL_BATCH, MEL_SEG = 16, 8192   # the GAN mel loss's and featurize's batch
+VOC_STEPS = 10
+VOCODER = {"fs": 16000, "n_fft": 512, "hop_length": 128, "n_mels": 80,
+           "generator_conf": {"channels": 128, "upsample_scales": [8, 4, 4],
+                              "upsample_kernel_sizes": [16, 8, 8],
+                              "kernel_size": 7,
+                              "resblock_kernel_sizes": [3, 7],
+                              "resblock_dilations": [[1, 3], [1, 3]]},
+           "discriminator_conf": {"periods": [2, 3, 5], "scales": 2},
+           "segment_size": 8192, "batch_size": 16, "steps_per_dispatch": 8,
+           "keep_nbest_models": 2}
+
+
+def vits_config_dict(workdir: Path) -> dict:
+    """The VITS asset's config (the recipe's), over the speaker-0 data dirs
+    under workdir/data, its token list and both parts of its weights as
+    init_param, writing to workdir/vits."""
+    from espnet_tpu_torch.utils.config import load_yaml
+    data = workdir / "data"
+    return {**load_yaml(TTS / "config.yaml"),
+            "output_dir": str(workdir / "vits"),
+            "train_data_path_and_name_and_type": [
+                f"{data}/train/text,text,text",
+                f"{data}/train/wav.scp,speech,sound"],
+            "valid_data_path_and_name_and_type": [
+                f"{data}/valid/text,text,text",
+                f"{data}/valid/wav.scp,speech,sound"],
+            "token_list": str(TTS / "tokens.txt"), "init_param": str(TTS)}
+
+
+def vits_draws(i: int, spec_lengths, n_frames: int, z: int = 192,
+               seg: int = 64) -> dict:
+    """The i-th batch's draws, numpy-made for both packages: the
+    posterior's noise (B, n_frames, z) and the window starts (B,),
+    randint(0, 2^30) % max(spec_length - seg, 1)."""
+    import numpy as np
+    rng = np.random.RandomState(VITS_DRAW_SEED + i)
+    B = len(spec_lengths)
+    noise = rng.randn(B, n_frames, z).astype(np.float32)
+    starts = rng.randint(0, 2 ** 30, size=B) % np.maximum(
+        np.asarray(spec_lengths) - seg, 1)
+    return {"noise": noise, "starts": starts.astype(np.int32)}
 
 
 def emit(obj):
@@ -2021,6 +2095,558 @@ def lm_tts_phases(torch, _cuda, workdir: Path, smi: str):
     return lm_launches, tts_launches
 
 
+class GANStepTimer:
+    """Wraps train/gan_trainer.py's step factories: each train step's
+    launches (the counts before and after it), its host ms (synchronised
+    on both sides), and each valid batch's launches; and VITS.align, whose
+    CUDA events give the alignment searches' ms in each train step."""
+
+    def __init__(self, torch, _cuda):
+        from espnet_tpu_torch.models.tts import vits
+        from espnet_tpu_torch.train import gan_trainer
+        self.torch, self._cuda = torch, _cuda
+        self.steps, self.valid, self.mas = [], [], []
+        self.in_step = False
+        self.modules = {"gan_trainer": gan_trainer, "vits": vits}
+        self.saved = (gan_trainer.make_gan_train_step,
+                      gan_trainer.make_gan_eval_step, vits.VITS.align)
+
+    def __enter__(self):
+        torch, _cuda = self.torch, self._cuda
+        gt, vits = self.modules["gan_trainer"], self.modules["vits"]
+        make_train, make_eval, align = self.saved
+
+        def timed_train(*args, **kwargs):
+            step = make_train(*args, **kwargs)
+
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                before = dict(_cuda.LAUNCHES)
+                self.mas.append([])
+                self.in_step = True
+                t0 = time.perf_counter()
+                out = step(*a, **kw)
+                torch.cuda.synchronize()
+                self.in_step = False
+                ms = (time.perf_counter() - t0) * 1e3
+                self.steps.append({
+                    "ms": ms, "launches": {n: _cuda.LAUNCHES[n] - before[n]
+                                           for n in before}})
+                return out
+            return run
+
+        def timed_eval(*args, **kwargs):
+            step = make_eval(*args, **kwargs)
+
+            def run(*a, **kw):
+                before = dict(_cuda.LAUNCHES)
+                out = step(*a, **kw)
+                self.valid.append({n: _cuda.LAUNCHES[n] - before[n]
+                                   for n in before})
+                return out
+            return run
+
+        def timed_align(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = align(*args)
+            end.record()
+            if self.in_step:
+                self.mas[-1].append((start, end))
+            return out
+
+        gt.make_gan_train_step, gt.make_gan_eval_step = (timed_train,
+                                                         timed_eval)
+        vits.VITS.align = staticmethod(timed_align)
+        return self
+
+    def __exit__(self, *exc):
+        gt, vits = self.modules["gan_trainer"], self.modules["vits"]
+        gt.make_gan_train_step, gt.make_gan_eval_step, align = self.saved
+        vits.VITS.align = staticmethod(align)
+
+    def mas_ms(self):
+        """The alignment searches' device ms in each step."""
+        self.torch.cuda.synchronize()
+        return [sum(a.elapsed_time(b) for a, b in ev) for ev in self.mas]
+
+
+def gan_train_run(torch, _cuda, entry_main, cfg_path: Path):
+    """Train a GAN through its entry point with the launch counts at 0
+    first -> (the trainer, the timer, wall seconds, peak device bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    with GANStepTimer(torch, _cuda) as timer:
+        _, trainer = entry_main(["--config", str(cfg_path)])
+    torch.cuda.synchronize()
+    return (trainer, timer, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated())
+
+
+def no_dropout(model):
+    """Every dropout of ``model`` at 0: training mode with the JAX
+    reference's deterministic forward."""
+    import torch
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    return model
+
+
+def rel_diffs(ours: dict, ref: dict) -> dict:
+    """Each loss term's relative distance from the reference's."""
+    return {k: abs(ours[k] / ref[k] - 1) for k in ref if k.endswith("_loss")}
+
+
+def mas_margins(neg_cent, path, tl: int, fl: int) -> list:
+    """Per token of one utterance, the closest call the alignment search
+    made on the path through it: the smallest |advance - stay| over the
+    larger of the two, at the frames the path spends on the token (fp32
+    scores redone in numpy, as the search does them)."""
+    import numpy as np
+    v = neg_cent[:tl, :fl].astype(np.float32)
+    S = v.shape[0]
+    neg = np.float32(-1e9)
+    prev = np.where(np.arange(S) == 0, v[:, 0], neg).astype(np.float32)
+    on = path[:tl, :fl].argmax(axis=0)
+    margins = [float("inf")] * tl
+    for t in range(1, fl):
+        adv = np.concatenate([[neg], prev[:-1]]).astype(np.float32)
+        s = int(on[t])
+        gap = abs(float(adv[s]) - float(prev[s])) / max(
+            abs(float(adv[s])), abs(float(prev[s])), 1e-30)
+        margins[s] = min(margins[s], gap)
+        prev = np.where(np.arange(S) <= t, np.maximum(prev, adv) + v[:, t],
+                        neg).astype(np.float32)
+    return margins
+
+
+def gan_grad_check(torch, make_model, batch: dict, draws: dict) -> dict:
+    """grad_check for a GAN model, one backward of each turn in eval mode
+    on the card and on the CPU: the turn's loss and each gradient of its
+    part within GRAD_TOL of its scale (the larger of its own largest entry
+    and 1e-4 of the part's largest gradient). The CPU legs take the
+    card's side of every ReLU and leaky ReLU (slope 0.1) and the card's
+    region of every +-7 clip of a log-scale (grad_pin.pin_kinks; a move
+    above MOVE_TOL fails the check), and VITS's alignment takes the
+    card's path (pin_alignment: the frames moved are reported). A float64
+    leg on the CPU, pinned alike, is the reference of both fp32 legs; an
+    unpinned CPU leg is reported beside them."""
+    from espnet_tpu_torch import convert
+    from espnet_tpu_torch.tools import grad_pin
+    from espnet_tpu_torch.train.trainer import to_device
+    out = {}
+    for gen_turn, part in ((True, "generator"), (False, "discriminator")):
+        regions, signs, paths = {}, {}, {}
+        moved = {"cpu": {}, "cpu_float64": {}}
+        losses, grads, seconds = {}, {}, {}
+        for dev in ("card", "cpu_free", "cpu", "cpu_float64"):
+            t0 = time.perf_counter()
+            dev_ = "cuda" if dev == "card" else "cpu"
+            m = make_model(dev_)
+            if dev == "cpu_float64":
+                grad_pin.to_float64(m)
+            hooks = [] if dev == "cpu_free" else (
+                grad_pin.pin_kinks(grad_pin.kink_modules(m), regions,
+                                   moved.get(dev))
+                + grad_pin.pin_relus(grad_pin.relu_inputs(m), signs,
+                                     moved.get(dev))
+                + grad_pin.pin_alignment(m, paths, moved.get(dev)))
+            loss, _, _ = m(**to_device(batch, dev_),
+                           **to_device(draws, dev_),
+                           forward_generator=gen_turn)
+            loss.backward()
+            for h in hooks:
+                h.remove()
+            losses[dev] = loss.item()
+            grads[dev] = convert.state_dict_to_flax(getattr(m, part),
+                                                    grad=True)
+            seconds[dev] = time.perf_counter() - t0
+            del m, loss
+        top = max(float(abs(g).max()) for g in grads["cpu"].values())
+        top64 = max(float(abs(g).max())
+                    for g in grads["cpu_float64"].values())
+
+        def ratios(dev, ref, top_):
+            return {n: float(abs(grads[dev][n] - g).max())
+                    / max(float(abs(g).max()), 1e-4 * top_)
+                    for n, g in grads[ref].items()}
+
+        pinned = ratios("card", "cpu", top)
+        free = ratios("card", "cpu_free", top)
+        card64 = ratios("card", "cpu_float64", top64)
+        cpu64 = ratios("cpu", "cpu_float64", top64)
+        worst = max(pinned, key=pinned.get)
+        far = {f"{leg}/{k}": row for leg, rows in moved.items()
+               for k, row in rows.items()
+               if not k.endswith(".align")
+               and not row[2] <= grad_pin.MOVE_TOL}
+        out[part] = {
+            "loss_card": losses["card"], "loss_cpu": losses["cpu"],
+            "max_grad_ratio": pinned[worst], "worst_param": worst,
+            "n_params": len(pinned), "tol": GRAD_TOL,
+            "n_over_tol": sum(r > GRAD_TOL for r in pinned.values()),
+            "over_tol": {n: r for n, r in pinned.items() if r > GRAD_TOL},
+            "pins_moved": {
+                "cpu": moved["cpu"], "float64": moved["cpu_float64"],
+                "rows": "{pin#call: [entries moved, largest distance to "
+                        "the kink, that over the input's largest]; "
+                        "align: [frames on another token, utterances]}",
+                "tol": grad_pin.MOVE_TOL},
+            "max_grad_ratio_unpinned": max(free.values()),
+            "float64": {
+                "loss": losses["cpu_float64"],
+                "max_card_vs_float64": max(card64.values()),
+                "max_cpu_vs_float64": max(cpu64.values()),
+                "worst_param": [worst, card64[worst], cpu64[worst]],
+                "card_worst5": sorted(card64.items(), key=lambda kv: -kv[1])
+                [:5]},
+            "seconds": seconds}
+        if far:
+            raise AssertionError(f"{part} turn: a pin moved entries by "
+                                 f"more than rounding: {far}")
+        if not pinned[worst] <= GRAD_TOL:
+            raise AssertionError(f"{part} turn: card and CPU gradients "
+                                 f"disagree: {worst} {pinned[worst]}; "
+                                 f"{out[part]}")
+        if not abs(losses["card"] / losses["cpu"] - 1) <= GRAD_TOL:
+            raise AssertionError(f"{part} turn: card and CPU losses "
+                                 f"disagree: {losses}")
+    return out
+
+
+def gan_phases(torch, _cuda, workdir: Path, smi: str):
+    """Phases 27-28: VITS training and the GAN vocoder. -> the K2 launches
+    of a VITS train step, of a VITS valid batch and of a vocoder train
+    step, and their entry in the kernels line's paths."""
+    import numpy as np
+
+    from espnet_tpu_torch import convert
+    from espnet_tpu_torch.bin import gan_tts_train, gan_vocoder_train
+    from espnet_tpu_torch.bin.asr_inference import Speech2Text
+    from espnet_tpu_torch.data.batching import bucket_length
+    from espnet_tpu_torch.data.synth_speech import SynthSpeechCorpus
+    from espnet_tpu_torch.tasks.gan_tts import GANTTSTask, GANVocoderTask
+    from espnet_tpu_torch.train.checkpoint import load_checkpoint
+    from espnet_tpu_torch.train.gan_trainer import (GANOptimizers,
+                                                    make_gan_eval_step,
+                                                    make_gan_train_step)
+    from espnet_tpu_torch.train.optim import build_optimizer
+    from espnet_tpu_torch.train.trainer import evaluate, to_device
+    from espnet_tpu_torch.utils.config import dump_yaml, resolve_config
+    from espnet_tpu_torch.utils.scoring import score_corpus
+
+    ref = json.loads(VITS_REF.read_text(encoding="utf-8"))
+    vdir = workdir / "gan"
+    t0 = time.perf_counter()
+    SynthSpeechCorpus().materialize(vdir / "data", n_train=VITS_N_TRAIN,
+                                    n_valid=VITS_N_VALID, n_test=0,
+                                    speaker_ids=[0])
+    data_s = time.perf_counter() - t0
+
+    def vits_cfg(name, **extra):
+        cfg = resolve_config(GANTTSTask.default_config(), overrides={
+            **vits_config_dict(vdir), "output_dir": str(vdir / name),
+            "max_epoch": 1, "num_iters_per_epoch": VITS_STEPS,
+            "log_interval": 1, **extra})
+        dump_yaml(cfg, vdir / f"{name}.yaml")
+        return cfg, vdir / f"{name}.yaml"
+
+    cfg, _ = vits_cfg("parity")
+
+    def asset_model(dev, dropout_off=True):
+        m = GANTTSTask.build_model(cfg)
+        GANTTSTask.load_pretrained(m, cfg["init_param"])
+        m.to(dev)
+        return no_dropout(m) if dropout_off else m
+
+    train_if = GANTTSTask.build_iter_factory(cfg, train=True)
+    valid_if = GANTTSTask.build_iter_factory(cfg, train=False)
+
+    def batch_of(keys):
+        return train_if.collate_fn([train_if.dataset[k] for k in keys])[1]
+
+    def draws_of(b, i):
+        return vits_draws(i, b["spec_lengths"], b["spec"].shape[1])
+
+    # 27. first-batch parity: the asset, dropout off, numpy draws
+    keys0 = train_if.epoch_batches(1)[0]
+    if list(keys0) != ref["first_batch"]["keys"]:
+        raise AssertionError("the first train batch's keys differ from "
+                             "the JAX reference's")
+    b0 = batch_of(keys0)
+    d0 = draws_of(b0, 0)
+    model = asset_model("cuda")
+    model.train()
+    captured = {}
+    own_align = model.generator.align
+
+    def capture(neg_cent, tl, fl):
+        captured["neg_cent"] = neg_cent.detach().cpu().numpy()
+        return own_align(neg_cent, tl, fl)
+
+    model.generator.align = capture
+    with torch.no_grad():
+        tb, td = to_device(b0, "cuda"), to_device(d0, "cuda")
+        gen = model.generator(tb["text"], tb["text_lengths"], tb["spec"],
+                              tb["spec_lengths"], **td)
+        _, gstats, _ = model(**tb, **td, forward_generator=True)
+        _, dstats, _ = model(**tb, **td, forward_generator=False)
+    del model.generator.align
+    first = {k: float(v) for k, v in {**gstats, **dstats}.items()}
+    first_rel = rel_diffs(first, ref["first_batch"]["stats"])
+    path = gen["durations"].cpu().numpy()
+    durs_differ = []
+    tl_np, fl_np = b0["text_lengths"], b0["spec_lengths"]
+    n_tokens = int(tl_np.sum())
+    for u in range(len(tl_np)):
+        ours = path[u, :tl_np[u]].astype(int).tolist()
+        want = ref["first_batch"]["durations"][u]
+        bad = [s for s in range(len(want)) if ours[s] != want[s]]
+        if bad:
+            with torch.no_grad():
+                p_u = model.generator.align(
+                    torch.from_numpy(captured["neg_cent"][u:u + 1]),
+                    torch.tensor([int(tl_np[u])]),
+                    torch.tensor([int(fl_np[u])]))[0].numpy()
+            margin = mas_margins(captured["neg_cent"][u], p_u,
+                                 int(tl_np[u]), int(fl_np[u]))
+            durs_differ += [[u, s, ours[s], want[s], margin[s]]
+                            for s in bad]
+
+    # two GAN steps from the asset, dropout off, the same draws
+    model = asset_model("cuda")
+    opts = GANOptimizers(*(build_optimizer(
+        dict(getattr(model, part).named_parameters()), cfg[f"optim{n}"],
+        grad_clip=cfg["grad_clip"], **cfg[f"optim{n}_conf"])
+        for part, n in (("generator", ""), ("discriminator", "2"))))
+    step = make_gan_train_step(model, opts)
+    two = []
+    for i, keys in enumerate(train_if.epoch_batches(1)[:2]):
+        b = batch_of(keys)
+        stats, _ = step(to_device(b, "cuda"),
+                        draws=to_device(draws_of(b, i), "cuda"))
+        two.append({"stats": stats,
+                    "rel": rel_diffs(stats, ref["steps"][i])})
+    del model, opts, step
+
+    # the 60 valid utterances at the asset, dropout off, numpy draws
+    model = asset_model("cuda")
+    model.eval()
+    sums, n_valid = {}, 0
+    with torch.no_grad():
+        for j, (vkeys, vb) in enumerate(valid_if.build_iter(
+                1, shuffle=False)):
+            vd = draws_of(vb, VALID_DRAW_OFFSET + j)
+            tb, td = to_device(vb, "cuda"), to_device(vd,
+                                                             "cuda")
+            _, gs, _ = model(**tb, **td, forward_generator=True)
+            _, ds, _ = model(**tb, **td, forward_generator=False)
+            for k, v in {**gs, **ds}.items():
+                sums[k] = sums.get(k, 0.0) + float(v) * len(vkeys)
+            n_valid += len(vkeys)
+    valid_parity = {k: v / n_valid for k, v in sums.items()}
+    valid_rel = rel_diffs(valid_parity, ref["valid"])
+    del model
+    worst_rel = max([*first_rel.values(), *valid_rel.values(),
+                     *(v for t in two for v in t["rel"].values())])
+    emit({"phase": "vits_parity", "asset": TTS.name,
+          "reference": str(VITS_REF.relative_to(ROOT)),
+          "data_seconds": data_s, "dropout": "off",
+          "first_batch": {"stats": first, "rel_diff": first_rel,
+                          "tokens": n_tokens,
+                          "durations_differ": durs_differ,
+                          "rows": "[utterance, token, ours, JAX's, the "
+                                  "closest call on its path, relative]"},
+          "two_steps": two, "valid": {"n_utts": n_valid,
+                                      "stats": valid_parity,
+                                      "rel_diff": valid_rel},
+          "rel_tol": VITS_LOSS_TOL, "margin_tol": MAS_MARGIN_TOL,
+          "nvidia_smi": smi})
+    if not worst_rel <= VITS_LOSS_TOL:
+        raise AssertionError(f"a VITS loss term differs from the JAX "
+                             f"package's by {worst_rel} (relative)")
+    if any(not row[4] < MAS_MARGIN_TOL for row in durs_differ):
+        raise AssertionError(f"MAS durations differ at calls that are "
+                             f"not close: {durs_differ}")
+
+    # 27. the entry point, the config as it is: 10 steps, validation
+    start = asset_model("cuda", dropout_off=False)
+    before = evaluate(start, valid_if, "cuda", make_step=make_gan_eval_step)
+    del start
+    tcfg, tpath = vits_cfg("train")
+    trainer, timer, wall, peak = gan_train_run(torch, _cuda,
+                                               gan_tts_train.main, tpath)
+    steps = trainer.step_stats
+    mas = timer.mas_ms()
+    after = trainer.reporter.stats[1]["valid"]
+    fresh = GANTTSTask.build_model(tcfg)
+    convert.load_flax_params(fresh, load_checkpoint(
+        Path(tcfg["output_dir"]) / "checkpoint")[0])
+    fresh.to("cuda")
+    reloaded = evaluate(fresh, valid_if, "cuda",
+                        make_step=make_gan_eval_step)
+    keys_ = ("generator_loss", "generator_adv_loss", "generator_mel_loss",
+             "generator_kl_loss", "generator_dur_loss",
+             "generator_feat_match_loss", "discriminator_loss",
+             "grad_norm_g", "grad_norm_d", "skipped", "skipped_d")
+    per_step = [{k: s[k] for k in keys_}
+                | {"logmel_fwd": t["launches"]["logmel_fwd"],
+                   "ms": t["ms"], "mas_ms": m_}
+                for s, t, m_ in zip(steps, timer.steps, mas)]
+    vits_step = timer.steps[0]["launches"]
+    vits_valid = timer.valid[0]
+    med_ms = statistics.median(t["ms"] for t in timer.steps)
+    med_mas = statistics.median(mas)
+    emit({"phase": "vits_train", "batch_size": tcfg["batch_size"],
+          "n_train": VITS_N_TRAIN, "n_valid": VITS_N_VALID,
+          "steps": per_step, "median_step_ms": med_ms,
+          "median_mas_ms": med_mas, "mas_share": med_mas / med_ms,
+          "launches_per_step": vits_step,
+          "launches_per_valid_batch": vits_valid,
+          "valid_before": before, "valid_after": after,
+          "valid_reloaded_loss": reloaded["loss"],
+          "peak_memory_bytes": peak, "wall_seconds": wall,
+          "nvidia_smi": smi})
+    check_gan_steps(steps, timer, {"logmel_fwd": 2}, VITS_STEPS)
+    if timer.valid[0] != {n: 2 * (n == "logmel_fwd") for n in _cuda.LAUNCHES
+                          } or any(
+            v != timer.valid[0] for v in timer.valid):
+        raise AssertionError(f"VITS valid launches {timer.valid}")
+    if not abs(reloaded["loss"] - after["loss"]) <= RELOAD_TOL * abs(
+            after["loss"]):
+        raise AssertionError(f"VITS reload: {reloaded['loss']} against "
+                             f"{after['loss']}")
+
+    # the round trip with the trained generator, noise scale 0.333
+    tmodel = trainer.model.eval()
+    hop = tcfg["hop_length"]
+    keys, texts = tts_keys(SynthSpeechCorpus())
+    pre = GANTTSTask.build_preprocess_fn(tcfg, train=False)
+    s2t = Speech2Text(asr_train_config=ASSET / "config.yaml",
+                      asr_model_file=ASSET, beam_size=BEAM,
+                      ctc_weight=CTC_WEIGHT)
+    hyps = []
+    for i, (k, text) in enumerate(zip(keys, texts)):
+        ids = pre(k, {"text": text, "speech": np.zeros(512, np.float32)})[
+            "text"]
+        t = torch.from_numpy(padded_ids(ids)).cuda()
+        tl = torch.tensor([len(ids)], device="cuda")
+        with torch.no_grad():
+            wav, olens = tmodel.decode(t, tl, noise=torch.from_numpy(
+                tts_noise(i)).cuda(), noise_scale=NOISE_SCALES[0],
+                max_frames=MAX_FRAMES)
+        wav = wav[0, :int(olens[0]) * hop].cpu().numpy()
+        hyps.append(s2t(*wave_batch(wav, bucket_length))[0][0][0])
+    trained_wer = wer_cer(score_corpus, texts, hyps)
+    asset_wer = json.loads(TTS_LM_REFERENCE.read_text(encoding="utf-8"))[
+        "tts_vits"][f"ns_{NOISE_SCALES[0]}"]["wer"]
+    del tmodel, trainer, fresh, s2t
+
+    # determinism: two 3-step runs from one seed and a resumed one
+    vits_det = determinism(GANTTSTask, lambda n, **kw: vits_cfg(n, **kw),
+                           "vits")
+
+    # the grad check of both turns, on the trained checkpoint
+    gb = batch_of(keys0)
+    gb = {k: v[:VITS_GRAD_BATCH] for k, v in gb.items()}
+    gd = {k: v[:VITS_GRAD_BATCH] for k, v in draws_of(b0, 0).items()}
+
+    def trained(dev):
+        m = GANTTSTask.build_model(tcfg)
+        convert.load_flax_params(m, load_checkpoint(
+            Path(tcfg["output_dir"]) / "checkpoint")[0])
+        return m.to(dev).eval()
+
+    vits_grads = gan_grad_check(torch, trained, gb, gd)
+    emit({"phase": "vits_train_checks",
+          "round_trip": {"n_texts": len(keys),
+                         "noise_scale": NOISE_SCALES[0]} | trained_wer,
+          "round_trip_wer_untrained_asset_jax": asset_wer,
+          "determinism": vits_det, "grad_check": vits_grads,
+          "nvidia_smi": smi})
+
+    # 28. the GAN vocoder: the recipe's config from the seed, over the
+    # same speaker-0 waves
+    def voc_cfg(name, **extra):
+        data = vdir / "data"
+        c = resolve_config(GANVocoderTask.default_config(), overrides={
+            **VOCODER, "output_dir": str(vdir / name), "max_epoch": 1,
+            "num_iters_per_epoch": VOC_STEPS, "log_interval": 1,
+            "train_data_path_and_name_and_type": [
+                f"{data}/train/wav.scp,speech,sound"],
+            "valid_data_path_and_name_and_type": [
+                f"{data}/valid/wav.scp,speech,sound"], **extra})
+        dump_yaml(c, vdir / f"{name}.yaml")
+        return c, vdir / f"{name}.yaml"
+
+    vcfg, vpath = voc_cfg("vocoder")
+    vtrainer, vtimer, vwall, vpeak = gan_train_run(
+        torch, _cuda, gan_vocoder_train.main, vpath)
+    vsteps = vtrainer.step_stats
+    vafter = vtrainer.reporter.stats[1]["valid"]
+    vvalid_if = GANVocoderTask.build_iter_factory(vcfg, train=False)
+
+    def voc_trained(dev):
+        m = GANVocoderTask.build_model(vcfg)
+        convert.load_flax_params(m, load_checkpoint(
+            Path(vcfg["output_dir"]) / "checkpoint")[0])
+        return m.to(dev).eval()
+
+    vreloaded = evaluate(voc_trained("cuda"), vvalid_if, "cuda",
+                         make_step=make_gan_eval_step)
+    voc_step = vtimer.steps[0]["launches"]
+    vkeys_ = ("generator_loss", "generator_adv_loss", "generator_mel_loss",
+              "generator_feat_match_loss", "discriminator_loss",
+              "grad_norm_g", "grad_norm_d", "skipped", "skipped_d")
+    vtrain_if = GANVocoderTask.build_iter_factory(vcfg, train=True)
+    vb = first_batch(vtrain_if, "cpu")
+    vb = {"speech": vb["speech"][:VITS_GRAD_BATCH].numpy()}
+    voc_det = determinism(GANVocoderTask, lambda n, **kw: voc_cfg(n, **kw),
+                          "vocoder")
+    voc_grads = gan_grad_check(torch, voc_trained, vb, {})
+    emit({"phase": "gan_vocoder_train", "batch_size": vcfg["batch_size"],
+          "segment_size": vcfg["segment_size"],
+          "steps": [{k: s[k] for k in vkeys_}
+                    | {"logmel_fwd": t["launches"]["logmel_fwd"],
+                       "ms": t["ms"]}
+                    for s, t in zip(vsteps, vtimer.steps)],
+          "median_step_ms": statistics.median(t["ms"]
+                                              for t in vtimer.steps),
+          "launches_per_step": voc_step,
+          "launches_per_valid_batch": vtimer.valid[0],
+          "valid_after": vafter, "valid_reloaded_loss": vreloaded["loss"],
+          "peak_memory_bytes": vpeak, "wall_seconds": vwall,
+          "determinism": voc_det, "grad_check": voc_grads,
+          "nvidia_smi": smi})
+    check_gan_steps(vsteps, vtimer, {"logmel_fwd": 4}, VOC_STEPS)
+    if not abs(vreloaded["loss"] - vafter["loss"]) <= RELOAD_TOL * abs(
+            vafter["loss"]):
+        raise AssertionError(f"vocoder reload: {vreloaded['loss']} "
+                             f"against {vafter['loss']}")
+    return vits_step, vits_valid, voc_step
+
+
+def check_gan_steps(steps, timer, want: dict, n_steps: int):
+    """n_steps finite, unskipped GAN steps, each with the launches
+    ``want`` (the kernels it does not name at 0)."""
+    if len(steps) != n_steps or len(timer.steps) != n_steps:
+        raise AssertionError(f"{len(steps)} GAN steps, not {n_steps}")
+    for s, t in zip(steps, timer.steps):
+        losses = [v for k, v in s.items() if k.endswith("_loss")
+                  or k.startswith("grad_norm")]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"a non-finite GAN step: {s}")
+        if s["skipped"] or s["skipped_d"]:
+            raise AssertionError(f"a GAN turn was skipped: {s}")
+        if t["launches"] != {n: want.get(n, 0) for n in t["launches"]}:
+            raise AssertionError(f"launches per GAN step {t['launches']}, "
+                                 f"not {want}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2058,6 +2684,7 @@ def run(torch, workdir: Path):
                                                 softmax_stats_plain)
     from espnet_tpu_torch.ops.logmel import (fused_logmel,
                                              fused_logmel_plain)
+    from espnet_tpu_torch.models.tts.hifigan import mel_spectrogram_loss
     from espnet_tpu_torch.ops.losses import ctc_loss
     from espnet_tpu_torch.ops.mel import mel_matrix
     from espnet_tpu_torch.tasks import asr_transducer
@@ -2253,6 +2880,30 @@ def run(torch, workdir: Path):
         k2_long_err = float((lout - lref)[lsel].abs().max())
         del lout, lref, lsel
 
+        # K2 at the GAN mel loss's shape (16, 8192): 16 centred crops of
+        # 8192 samples of the held-out utterances (the vocoder's valid
+        # crop and its featurize batch), and the mel loss between them
+        # and a perturbed copy, through the kernel and the plain version
+        mwave = torch.stack([F.pad(
+            speech[j, max((int(lengths_np[j]) - MEL_SEG) // 2, 0):][
+                :MEL_SEG], (0, max(MEL_SEG - int(lengths_np[j]), 0)))
+            for j in range(MEL_BATCH)]).contiguous()
+        mfake = mwave + 0.01 * torch.randn(
+            mwave.shape, device="cuda",
+            generator=torch.Generator("cuda").manual_seed(0))
+        mout, mref = (fused_logmel(mwave, **logmel_kw),
+                      fused_logmel_plain(mwave, **logmel_kw))
+        msel = mref > float(torch.log(torch.tensor(K2_MIN_MEL)))
+        k2_mel_err = float((mout - mref)[msel].abs().max())
+        k2_mel_same = bool(torch.equal(mout, fused_logmel(mwave,
+                                                          **logmel_kw)))
+        mel_loss_kernel = float(mel_spectrogram_loss(mfake, mwave,
+                                                     **logmel_kw))
+        mel_loss_plain = float((fused_logmel_plain(mfake, **logmel_kw)
+                                - mref).abs().mean())
+        k2_mel_loss_rel = abs(mel_loss_kernel / mel_loss_plain - 1)
+        del mout, mref, msel
+
     # K1b: the kernel through autograd against the plain version's
     # autograd, with every input (the bias too) needing a gradient
     def backward_errors(q_, k_, v_, b_, causal, scale, seed):
@@ -2433,8 +3084,21 @@ def run(torch, workdir: Path):
                    "plain_ms": time_ms(torch, lambda: fused_logmel_plain(
                        lwave, **logmel_kw)),
                    "library_ms": time_ms(torch, lambda: stft_mel(lwave))}
+        k2_mel = {"shape": list(mwave.shape), "max_abs_err": k2_mel_err,
+                  "same_bits_twice": k2_mel_same,
+                  "mel_loss": {"kernel": mel_loss_kernel,
+                               "plain": mel_loss_plain,
+                               "rel_diff": k2_mel_loss_rel,
+                               "tol": K2_MEL_LOSS_TOL},
+                  **k2_work(mwave),
+                  "ms": time_ms(torch, lambda: fused_logmel(mwave,
+                                                            **logmel_kw)),
+                  "plain_ms": time_ms(torch, lambda: fused_logmel_plain(
+                      mwave, **logmel_kw)),
+                  "library_ms": time_ms(torch, lambda: stft_mel(mwave))}
         bound(k1_train, tensor_cores=True)
         bound(k2_long)
+        bound(k2_mel)
         # the device kernels behind each time at the decode shapes: which
         # kernels SDPA and torch.stft run, and each one's device time
         profiled = device_times(torch, {
@@ -2457,7 +3121,11 @@ def run(torch, workdir: Path):
          "max_abs_err_all_frames": float((out2 - ref2).abs().max()),
          "same_bits_twice": k2_same,
          "long_form": {"shape": list(lwave.shape),
-                       "max_abs_err": k2_long_err}},
+                       "max_abs_err": k2_long_err},
+         "mel_loss_shape": {"shape": list(mwave.shape),
+                            "max_abs_err": k2_mel_err,
+                            "same_bits_twice": k2_mel_same,
+                            "mel_loss_rel_diff": k2_mel_loss_rel}},
         {"name": "rnnt_alpha+rnnt_beta", "shape": [Bk, Tk3, U1k, Vk],
          "tol": K3_TOL, "tol_of": "max abs err / max |plain|",
          "bit_exact": k3_exact, "same_bits_twice": k3_same,
@@ -2507,6 +3175,7 @@ def run(torch, workdir: Path):
          "library_ms": time_ms(torch, k2_library),
          "library_note": "torch.stft, the power and the mel product",
          **k2_work(speech), "at_long_form_train_batch": k2_long,
+         "at_mel_loss_shape": k2_mel,
          "device_kernels": {"kernel": profiled["logmel_fwd"],
                             "library": profiled["stft_mel"]}},
         {"name": "rnnt_alpha", "route": "cuda",
@@ -2555,6 +3224,11 @@ def run(torch, workdir: Path):
     if not k2_long_err <= K2_TOL:
         raise AssertionError(f"logmel_fwd disagrees on the long-form "
                              f"batch: {k2_long_err}")
+    if not (k2_mel_err <= K2_TOL and k2_mel_same
+            and k2_mel_loss_rel <= K2_MEL_LOSS_TOL):
+        raise AssertionError(f"logmel_fwd at the mel loss's shape: error "
+                             f"{k2_mel_err}, same bits {k2_mel_same}, mel "
+                             f"loss {k2_mel_loss_rel}")
     if not k1b_err <= K1B_TOL:
         raise AssertionError(f"flash_attn_bwd disagrees: {k1b_errs}")
     if not k2_err <= K2_TOL:
@@ -2914,6 +3588,9 @@ def run(torch, workdir: Path):
     lm_decode_launches, tts_decode_launches = lm_tts_phases(
         torch, _cuda, workdir, smi)
 
+    # 27-28. VITS training and the GAN vocoder
+    vits_step, vits_valid, voc_step = gan_phases(torch, _cuda, workdir, smi)
+
     print(smi, flush=True)
     # launches of each kernel per decode and per train step on the paths
     # that run it; "launches" is the count on its main path's run: the
@@ -2929,7 +3606,9 @@ def run(torch, workdir: Path):
                         "tts_round_trip_asr": tts_decode_launches},
              "train_step": {"flagship": want, "transducer": twant,
                             "longform": lwant,
-                            "enh_s2t": s2t_step_launches}}
+                            "enh_s2t": s2t_step_launches,
+                            "vits": vits_step, "gan_vocoder": voc_step},
+             "valid_batch": {"vits": vits_valid}}
     main_runs = {"flash_attn_fwd": decode_launches,
                  "flash_attn_bwd": train_launches,
                  "logmel_fwd": decode_launches,
@@ -2945,7 +3624,8 @@ def run(torch, workdir: Path):
             "plain_ms", "bound_ms", "bound_by", "library_ms")}
         | {key: kern[key] for key in (
             "bound_ms_fp32_cores", "chain_floor_ms", "at_train_shape",
-            "at_long_form_train_batch", "device_kernels") if key in kern}
+            "at_long_form_train_batch", "at_mel_loss_shape",
+            "device_kernels") if key in kern}
         | {"launches": main_runs[kern["name"]][kern["name"]]}
         | {f"launches_per_{kind_}": {
             model_: counts[kern["name"]]

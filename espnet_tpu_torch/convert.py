@@ -22,7 +22,10 @@ Module paths map one to one, except that flax's ``layerN`` is torch's
 ``layers.N``. Unused or missing keys raise. A checkpoint of several
 parts (a GAN's ``generator/params/...`` and ``discriminator/params/...``)
 loads one part by ``subtree``: that part's keys strictly, and a log line
-that names the parts left out and their array counts.
+that names the parts left out and their array counts. A model whose
+``flax_parts`` names such parts (the GAN containers) is read and written
+whole in that layout, each part strictly, as the JAX container's tree
+holds it.
 ``state_dict_to_flax`` is the inverse: a model's parameters as the flat
 flax dict, for checkpoints that the JAX package reads. ``compose`` roots
 several flat dicts under submodules, so that one model takes the weights
@@ -120,6 +123,15 @@ def load_flax_params(model: torch.nn.Module, flat: Dict[str, np.ndarray],
     """Load a flat flax parameter dict, or its part under ``subtree``,
     into ``model``; raise on keys that are unused or missing, and on
     shapes that differ."""
+    parts = getattr(model, "flax_parts", None)
+    if parts and subtree is None:
+        tops = {key.partition("/")[0] for key in flat}
+        if tops != set(parts):
+            raise KeyError(f"parts {sorted(tops)}, not {sorted(parts)}")
+        for part in parts:
+            load_flax_params(getattr(model, part),
+                             take_subtree(flat, part)[0])
+        return model
     if subtree is not None:
         flat, left_out = take_subtree(flat, subtree)
         logger.info("loaded %s; not loaded: %s", subtree, ", ".join(
@@ -153,7 +165,13 @@ def state_dict_to_flax(model: nn.Module,
                        grad: bool = False) -> Dict[str, np.ndarray]:
     """{"params/a/layer0/kernel": array}: the model's parameters (or,
     with ``grad``, their gradients) in the flax tree's naming and layouts
-    (f32 numpy)."""
+    (f32 numpy); a model with ``flax_parts`` as {"<part>/params/...":
+    array}."""
+    parts = getattr(model, "flax_parts", None)
+    if parts:
+        return {f"{part}/{key}": value for part in parts
+                for key, value in state_dict_to_flax(getattr(model, part),
+                                                     grad).items()}
     out = {}
     for key, _, module, name in _params(model):
         param = getattr(module, name)

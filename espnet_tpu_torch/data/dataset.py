@@ -1,6 +1,7 @@
 """Utterance-keyed dataset (counterpart of espnet_tpu/data/dataset.py):
 (path, name, type) triples -> self[uid] = (uid, {name: value}), through
-the preprocessor; floats come out float32 and ints int32. The types read
+the preprocessor (given the epoch, which the iterator sets, where it
+``takes_epoch``); floats come out float32 and ints int32. The types read
 are ``sound`` (wav.scp) and ``text``; the JAX package's others raise."""
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ class ESPnetDataset:
                 raise RuntimeError(f"duplicate data name {name!r}")
             self.loaders[name] = DATA_TYPES[typ](path)
         self.preprocess = preprocess
+        self.epoch = 0
 
     def names(self):
         return list(self.loaders)
@@ -67,7 +69,9 @@ class ESPnetDataset:
 
     def __getitem__(self, uid: str) -> Tuple[str, Dict[str, np.ndarray]]:
         data = {name: loader[uid] for name, loader in self.loaders.items()}
-        if self.preprocess is not None:
+        if getattr(self.preprocess, "takes_epoch", False):
+            data = self.preprocess(uid, data, epoch=self.epoch)
+        elif self.preprocess is not None:
             data = self.preprocess(uid, data)
         for name, v in data.items():
             if isinstance(v, np.ndarray) and v.dtype.kind == "f":

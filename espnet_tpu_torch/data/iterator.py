@@ -38,7 +38,9 @@ class SequenceIterFactory:
         return batches
 
     def build_iter(self, epoch: int, shuffle: Optional[bool] = None):
-        """Yields (uids, collated numpy batch)."""
+        """Yields (uids, collated numpy batch); the dataset learns the
+        epoch (a preprocessor's random crops draw per epoch)."""
+        self.dataset.epoch = epoch
         return prefetch(
             self.collate_fn([self.dataset[k] for k in keys])
             for keys in self.epoch_batches(epoch, shuffle))

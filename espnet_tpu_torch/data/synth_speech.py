@@ -234,10 +234,11 @@ class SynthSpeechCorpus:
         return wave, " ".join(words), sid
 
     def materialize(self, root, n_train: int = 800, n_valid: int = 50,
-                    n_test: int = 50) -> None:
+                    n_test: int = 50, speaker_ids=None) -> None:
         """Write Kaldi-style data dirs root/{train,valid,test} (wav.scp,
         text, 16-bit wavs), utterance ids ``{split}_{index:05d}``, as the
-        JAX package's ``materialize`` does."""
+        JAX package's ``materialize`` does; ``speaker_ids`` restricts the
+        voices (the TTS recipes' [0]: one speaker)."""
         from pathlib import Path
 
         from espnet_tpu_torch.data.fileio import write_wav
@@ -247,7 +248,8 @@ class SynthSpeechCorpus:
             (d / "wav").mkdir(parents=True, exist_ok=True)
             with open(d / "wav.scp", "w") as fw, open(d / "text", "w") as ft:
                 for i in range(n):
-                    wave, text, _ = self.utterance(split, i)
+                    wave, text, _ = self.utterance(
+                        split, i, speaker_ids=speaker_ids)
                     uid = f"{split}_{i:05d}"
                     write_wav(d / "wav" / f"{uid}.wav", FS, wave)
                     fw.write(f"{uid} {d / 'wav' / f'{uid}.wav'}\n")

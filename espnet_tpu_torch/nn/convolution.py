@@ -1,10 +1,14 @@
 """Depthwise 1-D convolution (counterpart of
 espnet_tpu/nn/convolution.py:DepthwiseConv1d, stride 1, SAME or VALID
 padding, any kernel dilation), flax's pointwise convolution, and flax's
-``SAME`` alignment for a 1-D convolution and a transposed one.
+``SAME`` alignment for a 1-D or 2-D convolution and a 1-D transposed one.
 
-flax's ``SAME`` pads a stride-1 convolution by span = dilation (K - 1)
-in all: span // 2 on the left, the rest on the right (``same_pads``).
+flax's ``SAME`` pads a convolution of stride s over n inputs to
+ceil(n / s) outputs: by total = max((ceil(n / s) - 1) s + span + 1 - n, 0)
+in all, span = dilation (K - 1), total // 2 on the left and the rest on
+the right (``same_pads``). At stride 1 that is span whatever n is; at
+strides 3 and 4 (the HiFi-GAN discriminators) it depends on each
+layer's input length and is uneven where n is not a multiple of s.
 Its ``ConvTranspose(K, strides=s, padding="SAME")`` (lax.conv_transpose)
 runs the kernel over the input dilated by s and padded by (a, b),
 a + b = K + s - 2, with a = K - 1 when s > K - 1 and ceil((K + s - 2) / 2)
@@ -51,10 +55,14 @@ class Pointwise(nn.Linear):
     (out, in) here."""
 
 
-def same_pads(kernel_size: int, dilation: int = 1):
-    """flax's SAME padding of a stride-1 convolution: (left, right)."""
+def same_pads(kernel_size: int, dilation: int = 1, stride: int = 1,
+              n: int = 0):
+    """flax's SAME padding of a convolution over n inputs: (left, right).
+    At stride 1 it does not depend on n."""
     span = dilation * (kernel_size - 1)
-    return span // 2, span - span // 2
+    total = max((-(-n // stride) - 1) * stride + span + 1 - n, 0) \
+        if stride > 1 else span
+    return total // 2, total - total // 2
 
 
 def transpose_same_crop(kernel_size: int, stride: int) -> int:
@@ -68,17 +76,39 @@ def transpose_same_crop(kernel_size: int, stride: int) -> int:
 
 
 class SameConv1d(nn.Conv1d):
-    """flax ``nn.Conv(out, (K,), padding="SAME", kernel_dilation=d)`` on
-    channels-first (B, C, T) -> (B, out, T)."""
+    """flax ``nn.Conv(out, (K,), strides=(s,), padding="SAME",
+    kernel_dilation=d, feature_group_count=g)`` on channels-first
+    (B, C, T) -> (B, out, ceil(T / s))."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int, dilation: int = 1):
+                 kernel_size: int, dilation: int = 1, stride: int = 1,
+                 groups: int = 1):
         super().__init__(in_channels, out_channels, kernel_size,
-                         dilation=dilation)
+                         stride=stride, dilation=dilation, groups=groups)
         self.pads = same_pads(kernel_size, dilation)
 
     def forward(self, x):
-        return super().forward(F.pad(x, self.pads))
+        s = self.stride[0]
+        pads = self.pads if s == 1 else same_pads(
+            self.kernel_size[0], self.dilation[0], s, x.shape[-1])
+        return super().forward(F.pad(x, pads))
+
+
+class SameConv2d(nn.Conv2d):
+    """flax ``nn.Conv(out, (kh, kw), strides=(sh, sw))`` (SAME, flax's
+    default) on channels-first (B, C, H, W) -> (B, out, ceil(H / sh),
+    ceil(W / sw))."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size,
+                 stride=(1, 1)):
+        super().__init__(in_channels, out_channels, tuple(kernel_size),
+                         stride=tuple(stride))
+
+    def forward(self, x):
+        (kh, kw), (sh, sw) = self.kernel_size, self.stride
+        top, bottom = same_pads(kh, 1, sh, x.shape[-2])
+        left, right = same_pads(kw, 1, sw, x.shape[-1])
+        return super().forward(F.pad(x, (left, right, top, bottom)))
 
 
 class SameConvTranspose1d(nn.ConvTranspose1d):

@@ -3,7 +3,8 @@ position-wise feed-forward, the encoder layer and the encoder.
 
 The encoder embeds with ``conv2d`` (Conv2dSubsampling x4), ``linear``
 (Dense -> LayerNorm -> dropout -> ReLU) or ``embed`` (a token embedding
-of token-id inputs (B, T), as the VITS text encoder's), adds the
+of token-id inputs (B, T), as the VITS text encoder's, looked up as a
+one-hot product so that its gradient repeats bit for bit), adds the
 absolute positional encoding and runs N layers of self-attention and
 feed-forward with residuals, normalised before (``normalize_before``,
 then a LayerNorm after the stack) or after each sub-block. With
@@ -24,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from espnet_tpu_torch.nn.attention import MultiHeadedAttention
-from espnet_tpu_torch.nn.embedding import PositionalEncoding
+from espnet_tpu_torch.nn.embedding import OneHotEmbedding, PositionalEncoding
 from espnet_tpu_torch.nn.subsampling import Conv2dSubsampling
 from espnet_tpu_torch.utils.masks import make_non_pad_mask
 
@@ -101,7 +102,7 @@ class TransformerEncoder(nn.Module):
             self.embed_norm = nn.LayerNorm(output_size, eps=LN_EPS)
             self.embed_dropout = nn.Dropout(dropout_rate)
         elif input_layer == "embed":
-            self.embed = nn.Embedding(input_size, output_size)
+            self.embed = OneHotEmbedding(input_size, output_size)
         else:
             raise NotImplementedError(f"input_layer {input_layer!r}: the "
                                       f"port has conv2d, linear and embed")

@@ -266,30 +266,50 @@ class AbsTask:
         if cfg.get("init_param"):
             cls.load_pretrained(model, cfg["init_param"])
         model.to(device)
+        trainer = cls.build_trainer(cfg, model, out, train_if, valid_if,
+                                    device)
+        trainer.run()
+        return cfg, trainer
+
+    @classmethod
+    def trainer_kwargs(cls, cfg, out, train_if, valid_if, device) -> dict:
+        """The Trainer's arguments after the model and the optimizer."""
+        return dict(
+            output_dir=out, train_iter_factory=train_if,
+            valid_iter_factory=valid_if, max_epoch=cfg["max_epoch"],
+            patience=cfg["patience"],
+            keep_nbest_models=cfg["keep_nbest_models"],
+            best_model_criterion=tuple(cfg["best_model_criterion"][0]),
+            seed=cfg["seed"], log_interval=cfg["log_interval"],
+            resume=cfg["resume"], device=device)
+
+    @classmethod
+    def build_trainer(cls, cfg, model, out, train_if, valid_if, device):
         optimizer = build_optimizer(
             dict(model.named_parameters()), cfg["optim"],
             scheduler=cfg["scheduler"], scheduler_conf=cfg["scheduler_conf"],
             grad_clip=cfg["grad_clip"], accum_grad=cfg["accum_grad"],
             **cfg["optim_conf"])
-        trainer = Trainer(
-            model, optimizer, out, train_if, valid_if,
-            max_epoch=cfg["max_epoch"], patience=cfg["patience"],
-            keep_nbest_models=cfg["keep_nbest_models"],
-            best_model_criterion=tuple(cfg["best_model_criterion"][0]),
-            seed=cfg["seed"], log_interval=cfg["log_interval"],
-            resume=cfg["resume"], device=device)
-        trainer.run()
-        return cfg, trainer
+        return Trainer(model, optimizer, **cls.trainer_kwargs(
+            cfg, out, train_if, valid_if, device))
 
     @classmethod
     def load_pretrained(cls, model: torch.nn.Module, init_param_specs):
         """``path[:src_key:dst_key:exclude_keys]``: take the checkpoint's
         parameters under ``src_key``, re-rooted at ``dst_key``, without
         ``exclude_keys`` (comma-separated), and set those whose flax name
-        and shape match the model's. Keys are flax paths ("params/...")."""
+        and shape match the model's. Keys are flax paths ("params/...";
+        "<part>/params/..." for a model with ``flax_parts``). The arrays
+        set are counted per top-level part; a spec that sets none raises,
+        and so does a load that leaves a part of a model with parts (a
+        GAN's generator or discriminator) without any array, unless the
+        specs' ``dst_key``s name the parts they are for. The counts stay
+        on the model as ``init_param_counts``."""
         if isinstance(init_param_specs, str):
             init_param_specs = [init_param_specs]
         own = convert.state_dict_to_flax(model)
+        per_part: Dict[str, int] = {}
+        wanted = set()
         for spec in init_param_specs:
             path, src, dst, excl = (str(spec).split(":") + ["", "", ""])[:4]
             excl = [e for e in excl.split(",") if e]
@@ -307,8 +327,62 @@ class AbsTask:
                 if name in own and own[name].shape == np.shape(v):
                     own[name] = np.asarray(v, np.float32)
                     n_set += 1
+                    top = name.partition("/")[0]
+                    per_part[top] = per_part.get(top, 0) + 1
             if n_set == 0:
                 raise ValueError(f"init_param {spec!r} matched nothing")
             logger.info("init_param %s: loaded %d tensors", spec, n_set)
+            wanted.add(dst.partition("/")[0] if dst else None)
+        parts = getattr(model, "flax_parts", None)
+        if parts:
+            need = set(parts) if None in wanted else wanted & set(parts)
+            empty = sorted(p for p in need if not per_part.get(p))
+            if empty:
+                raise ValueError(f"init_param {init_param_specs!r} set no "
+                                 f"array of {empty}; arrays set per part: "
+                                 f"{per_part}")
         convert.load_flax_params(model, own)
+        model.init_param_counts = per_part
         return model
+
+
+class AbsGANTask(AbsTask):
+    """The two-optimizer GAN task (counterpart of
+    espnet_tpu/tasks/abs_task.py:AbsGANTask): AbsTask's config, data and
+    checkpoints, with ``optim`` / ``optim_conf`` (and ``scheduler``) for
+    the generator, ``optim2`` / ``optim2_conf`` / ``scheduler2`` for the
+    discriminator, and training through GANTrainer
+    (``generator_first``, ``skip_discriminator_prob``). The model has
+    ``generator`` and ``discriminator`` parts (``flax_parts``), ``draw``
+    and a forward with ``forward_generator``."""
+
+    @classmethod
+    def gan_defaults(cls) -> Dict[str, Any]:
+        return {"optim": "adam", "optim_conf": {"lr": 2e-4,
+                                                "betas": (0.5, 0.9)},
+                "optim2": "adam", "optim2_conf": {"lr": 2e-4,
+                                                  "betas": (0.5, 0.9)},
+                "scheduler2": None, "scheduler2_conf": {},
+                "generator_first": True, "skip_discriminator_prob": 0.0}
+
+    @classmethod
+    def default_config(cls) -> Dict[str, Any]:
+        return {**COMMON_DEFAULTS, **cls.gan_defaults(),
+                **cls.task_defaults()}
+
+    @classmethod
+    def build_trainer(cls, cfg, model, out, train_if, valid_if, device):
+        from espnet_tpu_torch.train.gan_trainer import (GANOptimizers,
+                                                        GANTrainer)
+        opts = [build_optimizer(
+            dict(getattr(model, part).named_parameters()),
+            cfg[f"optim{n}"], scheduler=cfg.get(f"scheduler{n}"),
+            scheduler_conf=cfg.get(f"scheduler{n}_conf") or {},
+            grad_clip=cfg["grad_clip"], accum_grad=cfg["accum_grad"],
+            **cfg[f"optim{n}_conf"])
+            for part, n in (("generator", ""), ("discriminator", "2"))]
+        return GANTrainer(
+            model, GANOptimizers(*opts),
+            **cls.trainer_kwargs(cfg, out, train_if, valid_if, device),
+            generator_first=cfg.get("generator_first", True),
+            skip_discriminator_prob=cfg.get("skip_discriminator_prob", 0.0))

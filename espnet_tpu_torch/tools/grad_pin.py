@@ -11,6 +11,11 @@ rounding: MOVE_TOL bounds each module's largest move, relative to the
 module's largest |pre-activation|. ``pin_estimates`` gives a joint
 model's ASR branch the same separated wave on every leg, and
 ``pin_attention`` every rel-pos self-attention the same inputs.
+``pin_kinks`` does for the GAN models what ``pin_relus`` does: it moves
+the input of every leaky ReLU (slope 0.1) onto the noted side of 0 and
+that of every +-7 clip of a log-scale into the noted region, call by
+call (a discriminator runs twice a turn); ``pin_alignment`` gives VITS's
+alignment search the noted path, an argmax that a rounding may flip.
 ``to_float64`` makes a model the float64 reference of the fp32 legs.
 
 chip_smoke.py's grad_check, tools/grad_drift.py and the tests use these.
@@ -22,6 +27,9 @@ import torch
 import torch.nn.functional as F
 
 from espnet_tpu_torch.models.enh.separators import TCNBlock, TCNSeparator
+from espnet_tpu_torch.models.tts.fastspeech2 import VariancePredictor
+from espnet_tpu_torch.models.tts.hifigan import LeakyReLU
+from espnet_tpu_torch.models.tts.vits import LOGS_CLIP, VITS, Clip
 from espnet_tpu_torch.nn.attention import RelPositionMultiHeadedAttention
 from espnet_tpu_torch.nn.subsampling import Conv2dSubsampling
 from espnet_tpu_torch.nn.transformer import PositionwiseFeedForward
@@ -38,10 +46,14 @@ def relu_inputs(model) -> dict:
     too): the subsampling's two convolutions, the first linear of each
     ReLU feed-forward, and in the TCN separator the 1x1 and depthwise
     convolutions of each block, the last block (its output goes into the
-    PReLU before the masks) and the mask convolution of ReLU masks."""
+    PReLU before the masks) and the mask convolution of ReLU masks; each
+    convolution of a variance (duration) predictor."""
     out = {}
     for name, m in model.named_modules():
-        if isinstance(m, Conv2dSubsampling):
+        if isinstance(m, VariancePredictor):
+            out.update({f"{name}.conv{i}": getattr(m, f"conv{i}")
+                        for i in range(m.layers)})
+        elif isinstance(m, Conv2dSubsampling):
             out.update({f"{name}.conv0": m.conv0, f"{name}.conv1": m.conv1})
         elif isinstance(m, PositionwiseFeedForward) and m.act is F.relu:
             out[f"{name}.w_1"] = m.w_1
@@ -90,6 +102,93 @@ def pin_relus(modules: dict, signs: dict, moved: dict | None = None) -> list:
         return pin
     return [mod.register_forward_hook(hook(name))
             for name, mod in modules.items()]
+
+
+def _region(x, module):
+    """The side of a leaky ReLU's kink (1 above 0, else 0), or the region
+    of a clip (-1 below -7, 0 within, 1 above 7)."""
+    if isinstance(module, LeakyReLU):
+        return (x > 0).to(torch.int8)
+    return ((x > LOGS_CLIP).to(torch.int8)
+            - (x < -LOGS_CLIP).to(torch.int8))
+
+
+def _into(x, want, module):
+    """``x`` moved into the regions ``want``, with an identity gradient."""
+    if isinstance(module, LeakyReLU):
+        return take_side(x, want == 1)
+    over = torch.nextafter(torch.tensor(LOGS_CLIP, dtype=x.dtype),
+                           torch.tensor(float("inf"), dtype=x.dtype)).item()
+    side = torch.where(want == 1, x.clamp(min=over),
+                       torch.where(want == -1, x.clamp(max=-over),
+                                   x.clamp(-LOGS_CLIP, LOGS_CLIP)))
+    return side.detach() + (x - x.detach())
+
+
+def kink_modules(model) -> dict:
+    """{name: module} of every LeakyReLU and Clip in ``model``."""
+    return {name: m for name, m in model.named_modules()
+            if isinstance(m, (LeakyReLU, Clip))}
+
+
+def pin_kinks(modules: dict, regions: dict, moved: dict | None = None
+              ) -> list:
+    """Forward pre-hooks on ``modules`` (kink_modules): with ``moved``
+    None each notes its input's regions in ``regions`` under
+    "<name>#<call>"; else each moves its input into the noted regions
+    and, where that moved an entry, sets ``moved`` of its key to [entries
+    moved, the largest distance to the kink moved across, that over the
+    input's largest |entry|]. Returns the handles."""
+    def hook(name):
+        calls = [0]
+
+        def pin(module, args):
+            key = f"{name}#{calls[0]}"
+            calls[0] += 1
+            x = args[0]
+            if moved is None:
+                regions[key] = _region(x.detach(), module).cpu()
+                return None
+            want = regions[key].to(x.device)
+            flip = want != _region(x.detach(), module)
+            if bool(flip.any()):
+                kink = 0.0 if isinstance(module, LeakyReLU) else LOGS_CLIP
+                value = x.detach().abs()
+                largest = float((value[flip] - kink).abs().max())
+                moved[key] = [int(flip.sum()), largest,
+                              largest / float(value.max())]
+            return (_into(x, want, module),)
+        return pin
+    return [mod.register_forward_pre_hook(hook(name))
+            for name, mod in modules.items()]
+
+
+def pin_alignment(model, store: dict, moved: dict | None = None) -> list:
+    """Each VITS in ``model``: with ``moved`` None its alignment paths are
+    noted in ``store``; else its own search runs and the noted path is
+    used, and where the two differ ``moved["<name>.align"]`` is [frames
+    on another token, utterances]. Returns the handles."""
+    handles = []
+    for name, mod in model.named_modules():
+        if isinstance(mod, VITS):
+            key = f"{name}.align"
+
+            def align(neg_cent, text_lengths, spec_lengths, key=key,
+                      own=mod.align):
+                path = own(neg_cent, text_lengths, spec_lengths)
+                if moved is None:
+                    store[key] = path.cpu()
+                    return path
+                want = store[key].to(path.device, path.dtype)
+                differ = (want != path).any(dim=1)
+                if bool(differ.any()):
+                    moved[key] = [int(differ.sum()),
+                                  int(differ.any(dim=1).sum())]
+                return want
+
+            mod.align = align
+            handles.append(_Restore(mod, "align"))
+    return handles
 
 
 class _Restore:

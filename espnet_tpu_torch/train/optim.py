@@ -84,15 +84,16 @@ class Optimizer:
             [g for g in groups if g["params"]], lr=schedule(0),
             betas=tuple(betas), eps=eps)
 
-    def step(self) -> Dict[str, torch.Tensor]:
-        """Clip and apply the gradients now in ``.grad``; -> {grad_norm,
-        skipped} (the norm before clipping)."""
+    def step(self, skip: bool = False) -> Dict[str, torch.Tensor]:
+        """Clip and apply the gradients now in ``.grad``, unless their norm
+        is not finite or ``skip`` (a GAN step's discriminator coin); ->
+        {grad_norm, skipped} (the norm before clipping)."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
         for p, g in zip(self.params, grads):
             p.grad = g
         norm = global_norm(grads)
-        ok = bool(torch.isfinite(norm))
+        ok = bool(torch.isfinite(norm)) and not skip
         if ok:
             if self.grad_clip is not None and self.grad_clip > 0:
                 clip_by_global_norm_(grads, norm, self.grad_clip)
@@ -100,7 +101,7 @@ class Optimizer:
                 group["lr"] = self.schedule(self.count)
             self.torch_opt.step()
             self.count += 1
-        return {"grad_norm": norm, "skipped": (~torch.isfinite(norm)).float()}
+        return {"grad_norm": norm, "skipped": norm.new_tensor(float(not ok))}
 
     def zero_grad(self):
         self.torch_opt.zero_grad(set_to_none=True)

@@ -83,9 +83,10 @@ def make_eval_step(model: torch.nn.Module) -> Callable:
 
 
 def evaluate(model: torch.nn.Module, iter_factory, device,
-             epoch: int = 0) -> Dict[str, float]:
-    """Weighted means of the eval stats over one pass of iter_factory."""
-    step = make_eval_step(model)
+             epoch: int = 0, make_step=make_eval_step) -> Dict[str, float]:
+    """Weighted means of the eval stats (of ``make_step(model)``'s step)
+    over one pass of iter_factory."""
+    step = make_step(model)
     sub = Reporter().start_epoch("valid", epoch)
     for _, batch in iter_factory.build_iter(epoch, shuffle=False):
         sub.register(*step(to_device(batch, device)))

@@ -41,7 +41,7 @@ from espnet_tpu_torch.nn.convolution import DepthwiseConv1d
 from espnet_tpu_torch.ops import stft
 from espnet_tpu_torch.tasks.enh import EnhancementTask
 from espnet_tpu_torch.utils.config import dump_yaml
-from tests.torch_streaming_models import flax_params
+from tests.torch_streaming_models import flax_params, xla_unoptimized
 
 ROOT = Path(__file__).resolve().parents[1]
 ASSET = ROOT / "assets" / "synth_enh_tcn"
@@ -51,6 +51,14 @@ TINY = {"num_spk": 2, "encoder": "stft",
         "separator_conf": {"layers": 3, "stacks": 1, "bottleneck_dim": 8,
                            "hidden_dim": 16},
         "loss_type": "si_snr"}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_references_unoptimized():
+    """The JAX references compile without XLA's optimisations: they run
+    once, at small shapes, where compiling is most of their time."""
+    with xla_unoptimized():
+        yield
 
 
 @pytest.fixture(autouse=True, scope="module")

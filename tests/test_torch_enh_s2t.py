@@ -28,7 +28,7 @@ from espnet_tpu_torch.decode.beam_search import (BeamSearchConfig,
 from espnet_tpu_torch.tasks.enh import EnhS2TTask
 from espnet_tpu_torch.train.checkpoint import load_checkpoint
 from espnet_tpu_torch.utils.config import dump_yaml
-from tests.torch_streaming_models import flax_params
+from tests.torch_streaming_models import flax_params, xla_unoptimized
 
 ROOT = Path(__file__).resolve().parents[1]
 TOKENS = ["<blank>", "a", "b", "<space>", "<sos/eos>"]
@@ -46,6 +46,14 @@ CFG = {"token_list": TOKENS, "enh_weight": 0.2,
                     "decoder_conf": {"attention_heads": 2,
                                      "linear_units": 32, "num_blocks": 1},
                     "ctc_weight": 0.3}}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_references_unoptimized():
+    """The JAX references compile without XLA's optimisations: they run
+    once, at small shapes, where compiling is most of their time."""
+    with xla_unoptimized():
+        yield
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -20,7 +20,7 @@ from espnet_tpu_torch.bin import enh_train
 from espnet_tpu_torch.data.synth_speech import SynthMixCorpus
 from espnet_tpu_torch.train.checkpoint import load_checkpoint
 from espnet_tpu_torch.utils.config import dump_yaml
-from tests.torch_streaming_models import flax_params
+from tests.torch_streaming_models import flax_params, xla_unoptimized
 
 # the asset's optimizer (assets/synth_enh_tcn/config.yaml), and plain SGD
 OPTIMIZERS = {
@@ -30,6 +30,14 @@ OPTIMIZERS = {
     "sgd": {"optim": "sgd", "optim_conf": {"lr": 1e-3}, "scheduler": None,
             "grad_clip": 5.0},
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_references_unoptimized():
+    """The JAX references compile without XLA's optimisations: they run
+    once, at small shapes, where compiling is most of their time."""
+    with xla_unoptimized():
+        yield
 
 
 @pytest.fixture(autouse=True, scope="module")

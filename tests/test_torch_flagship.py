@@ -13,9 +13,18 @@ import torch
 from espnet_tpu.bin.asr_inference import Speech2Text as JaxSpeech2Text
 from espnet_tpu_torch.bin.asr_inference import Speech2Text
 from espnet_tpu_torch.data.synth_speech import SynthSpeechCorpus
+from tests.torch_streaming_models import xla_unoptimized
 
 ASSET = Path(__file__).resolve().parents[1] / "assets" / "synth_asr_flagship"
 N_UTTS = 3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_references_unoptimized():
+    """The JAX references compile without XLA's optimisations: they run
+    once, at small shapes, where compiling is most of their time."""
+    with xla_unoptimized():
+        yield
 
 
 @pytest.fixture(autouse=True, scope="module")

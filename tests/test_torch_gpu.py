@@ -18,6 +18,8 @@ same input, and the attention kernels the same bits on q, k, v given as
 strided views. The RNN-T sweeps take the same fp32
 steps as their plain versions: nll, alpha and beta equal theirs to the
 bit, and the closed-form gradient is within 1e-5 of its largest entry.
+The GAN mel loss through the log-mel kernel is within 1e-4 of the plain
+version's, and VITS and vocoder training repeat themselves bit for bit.
 """
 
 from pathlib import Path
@@ -903,3 +905,94 @@ def test_vits_on_the_card_matches_the_cpu():
     assert torch.equal(out["card"][1], out["again"][1])
     n = out["cpu"][2] * cfg["hop_length"]
     assert _relative_err(out["card"][1][0, :n], out["cpu"][1][0, :n]) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_k2_in_the_gan_mel_loss_matches_its_plain_version():
+    # the GAN mel loss at its shape, (16, 8192) at n_fft 512, hop 128, 80
+    # mels: through the kernel (2 launches, the same bits twice) within
+    # 1e-4 of the plain version's loss, the backward the plain version's
+    _cuda_or_skip()
+    from espnet_tpu_torch.models.tts.hifigan import mel_spectrogram_loss
+    g = torch.Generator(device="cuda").manual_seed(0)
+    real = 0.3 * torch.randn(16, 8192, generator=g, device="cuda")
+    fake = (real + 0.05 * torch.randn(16, 8192, generator=g,
+                                      device="cuda")).requires_grad_()
+    kw = dict(fs=16000, n_fft=512, hop_length=128, n_mels=80)
+    _cuda.reset_launch_counts()
+    loss = mel_spectrogram_loss(fake, real, **kw)
+    assert _cuda.LAUNCHES["logmel_fwd"] == 2
+    assert torch.equal(loss, mel_spectrogram_loss(fake, real, **kw))
+    plain = (fused_logmel_plain(fake, **kw)
+             - fused_logmel_plain(real, **kw)).abs().mean()
+    assert abs(float(loss) / float(plain) - 1) <= 1e-4
+    grad, = torch.autograd.grad(loss, fake)
+    assert torch.isfinite(grad).all() and float(grad.abs().max()) > 0
+
+
+def _gan_cfg(tmp_path, task):
+    """A tiny VITS (gan_tts) or HiFi-GAN vocoder (gan_vocoder) config over
+    4 speaker-0 utterances; the mel loss at n_fft 64, hop 32, 12 mels goes
+    through the log-mel kernel."""
+    data = tmp_path / "data"
+    gen = {"channels": 16, "upsample_scales": [4, 8],
+           "upsample_kernel_sizes": [8, 16], "resblock_kernel_sizes": [3],
+           "resblock_dilations": [[1, 3]]}
+    base = {"fs": 16000, "n_fft": 64, "hop_length": 32, "n_mels": 12,
+            "discriminator_conf": {"periods": [2, 3], "scales": 1},
+            "grad_clip": -1, "batch_type": "sorted", "batch_size": 2,
+            "max_epoch": 2, "num_iters_per_epoch": 1, "log_interval": 1,
+            "valid_data_path_and_name_and_type": []}
+    if task == "gan_vocoder":
+        return dict(base, generator_conf=gen, segment_size=256,
+                    train_data_path_and_name_and_type=[
+                        f"{data}/train/wav.scp,speech,sound"])
+    toks = ["<blank>"] + list("abcdefghijklmnopqrstuvwxyz") + [
+        "<space>", "<sos/eos>"]
+    (tmp_path / "tokens.txt").write_text("\n".join(toks) + "\n")
+    return dict(base, token_list=str(tmp_path / "tokens.txt"),
+                max_wav_length=4096,
+                collate_fixed_lengths={"text": 40, "speech": 4096,
+                                       "spec": 127},
+                tts_conf={"z_channels": 8, "hidden": 16, "segment_frames": 8,
+                          "text_encoder_conf": {
+                              "output_size": 16, "attention_heads": 2,
+                              "linear_units": 24, "num_blocks": 1},
+                          "generator_conf": gen},
+                train_data_path_and_name_and_type=[
+                    f"{data}/train/text,text,text",
+                    f"{data}/train/wav.scp,speech,sound"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("task", ["gan_tts", "gan_vocoder"])
+def test_gan_training_on_the_card_repeats_itself_bit_for_bit(tmp_path,
+                                                             task):
+    # two 2-step runs of each entry point from one seed (dropout on) end
+    # with the same parameters; every step runs K2 in the mel loss (and
+    # in the vocoder's featurize) and skips no turn
+    _cuda_or_skip()
+    from espnet_tpu_torch.bin import gan_tts_train, gan_vocoder_train
+    from espnet_tpu_torch.data.synth_speech import SynthSpeechCorpus
+    from espnet_tpu_torch.train.checkpoint import load_checkpoint
+    from espnet_tpu_torch.utils.config import dump_yaml
+    SynthSpeechCorpus().materialize(tmp_path / "data", n_train=4,
+                                    n_valid=0, n_test=0, speaker_ids=[0])
+    main = {"gan_tts": gan_tts_train, "gan_vocoder": gan_vocoder_train}[
+        task].main
+    finals = []
+    for run in ("a", "b"):
+        dump_yaml(dict(_gan_cfg(tmp_path, task),
+                       output_dir=str(tmp_path / run)),
+                  tmp_path / f"{run}.yaml")
+        _cuda.reset_launch_counts()
+        _, trainer = main(["--config", str(tmp_path / f"{run}.yaml")])
+        assert [(s["skipped"], s["skipped_d"])
+                for s in trainer.step_stats] == [(0.0, 0.0)] * 2
+        assert _cuda.LAUNCHES["logmel_fwd"] == 2 * (
+            2 if task == "gan_tts" else 4)
+        finals.append(load_checkpoint(tmp_path / run / "checkpoint")[0])
+    assert sorted(finals[1]) == sorted(finals[0])
+    for name in finals[0]:
+        np.testing.assert_array_equal(finals[1][name], finals[0][name],
+                                      err_msg=name)

@@ -27,9 +27,18 @@ from espnet_tpu.ops.rnnt import rnnt_loss as jax_rnnt_loss
 from espnet_tpu_torch import convert
 from espnet_tpu_torch.ops import losses, rnnt
 from espnet_tpu_torch.tools import grad_pin
+from tests.torch_streaming_models import xla_unoptimized
 
 ROOT = Path(__file__).resolve().parents[1]
 FLAGSHIP = ROOT / "assets" / "synth_asr_flagship"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_references_unoptimized():
+    """The JAX references compile without XLA's optimisations: they run
+    once, at small shapes, where compiling is most of their time."""
+    with xla_unoptimized():
+        yield
 
 
 @pytest.fixture

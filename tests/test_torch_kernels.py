@@ -36,12 +36,21 @@ from espnet_tpu_torch.ops.mel import mel_matrix
 from espnet_tpu_torch.ops.mel import log_mel, mel_filterbank
 from espnet_tpu_torch.ops.stft import (_windowed_dft_matrix, hann_window,
                                        stft, stft_segmented)
+from tests.torch_streaming_models import xla_unoptimized
 
 # fp32 throughout; the two frameworks sum in different orders, so outputs
 # agree to a few ulps of their magnitude (attention outputs are O(1))
 ATOL = 2e-5
 # log-mel: the same, in the log domain of O(1..10) energies
 LOGMEL_ATOL = 1e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_references_unoptimized():
+    """The JAX references compile without XLA's optimisations: they run
+    once, at small shapes, where compiling is most of their time."""
+    with xla_unoptimized():
+        yield
 
 
 @pytest.fixture(autouse=True, scope="module")

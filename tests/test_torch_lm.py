@@ -33,7 +33,7 @@ from espnet_tpu_torch.models.lm import LanguageModel
 from espnet_tpu_torch.tasks.asr import build_model, read_token_list
 from espnet_tpu_torch.tasks.lm import LMTask
 from chip_smoke import lm_sentences, write_text
-from tests.torch_streaming_models import flax_params
+from tests.torch_streaming_models import flax_params, xla_unoptimized
 
 ROOT = Path(__file__).resolve().parents[1]
 LM_ASSET = ROOT / "assets" / "synth_lm"
@@ -43,6 +43,14 @@ V = len(TOKENS)
 LM_CONF = {"embed_unit": 16, "att_unit": 32, "head": 2, "unit": 48,
            "layer": 2, "dropout_rate": 0.1}
 REL = 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_references_unoptimized():
+    """The JAX references compile without XLA's optimisations: they run
+    once, at small shapes, where compiling is most of their time."""
+    with xla_unoptimized():
+        yield
 
 
 def _t(x):

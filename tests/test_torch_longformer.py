@@ -42,10 +42,18 @@ from espnet_tpu_torch.ops.banded_attention import (banded_attention,
 from espnet_tpu_torch.tasks.asr import build_model, read_token_list
 from espnet_tpu_torch.train.checkpoint import save_checkpoint
 from espnet_tpu_torch.utils.config import dump_yaml, load_yaml
-from tests.torch_streaming_models import flax_params
+from tests.torch_streaming_models import flax_params, xla_unoptimized
 
 FLAGSHIP = (Path(__file__).resolve().parents[1] / "assets"
             / "synth_asr_flagship")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_references_unoptimized():
+    """The JAX references compile without XLA's optimisations: they run
+    once, at small shapes, where compiling is most of their time."""
+    with xla_unoptimized():
+        yield
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -45,12 +45,20 @@ from espnet_tpu_torch.nn.attention import rel_shift
 from espnet_tpu_torch.nn.embedding import (PositionalEncoding,
                                            RelPositionalEncoding)
 from espnet_tpu_torch.tasks.asr import build_model, read_token_list
-from tests.torch_streaming_models import flax_params
+from tests.torch_streaming_models import flax_params, xla_unoptimized
 
 FLAGSHIP = (Path(__file__).resolve().parents[1] / "assets"
             / "synth_asr_flagship")
 D = 64
 ATOL = 1e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_references_unoptimized():
+    """The JAX references compile without XLA's optimisations: they run
+    once, at small shapes, where compiling is most of their time."""
+    with xla_unoptimized():
+        yield
 
 
 @pytest.fixture(autouse=True, scope="module")

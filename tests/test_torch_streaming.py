@@ -31,10 +31,19 @@ from espnet_tpu_torch.frontends import streaming as frontend
 from espnet_tpu_torch.nn import streaming_encoder
 from espnet_tpu_torch.tasks.asr import ASRTask, build_model
 from espnet_tpu_torch.utils.config import load_yaml
-from tests.torch_streaming_models import ENC, flax_params, noise, pushes
+from tests.torch_streaming_models import (ENC, flax_params, noise, pushes,
+                                          xla_unoptimized)
 
 ROOT = Path(__file__).resolve().parents[1]
 STREAMING = ROOT / "assets" / "synth_asr_streaming"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_references_unoptimized():
+    """The JAX references compile without XLA's optimisations: they run
+    once, at small shapes, where compiling is most of their time."""
+    with xla_unoptimized():
+        yield
 
 
 @pytest.fixture(autouse=True, scope="module")

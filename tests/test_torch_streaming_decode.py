@@ -16,7 +16,16 @@ import torch
 from espnet_tpu.bin import asr_inference_streaming as jax_streaming_bin
 from espnet_tpu.tasks.asr import ASRTask as JaxASRTask
 from espnet_tpu_torch.bin import asr_inference_streaming
-from tests.torch_streaming_models import HYBRID, noise, pushes, save_model
+from tests.torch_streaming_models import (HYBRID, noise, pushes, save_model,
+                                          xla_unoptimized)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_references_unoptimized():
+    """The JAX references compile without XLA's optimisations: they run
+    once, at small shapes, where compiling is most of their time."""
+    with xla_unoptimized():
+        yield
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -23,7 +23,15 @@ from espnet_tpu_torch.data.fileio import write_wav
 from espnet_tpu_torch.decode import transducer_search
 from espnet_tpu_torch.frontends.streaming import StreamingFeatureExtractor
 from tests.torch_streaming_models import (TRANSDUCER, noise, pushes,
-                                          save_model)
+                                          save_model, xla_unoptimized)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_references_unoptimized():
+    """The JAX references compile without XLA's optimisations: they run
+    once, at small shapes, where compiling is most of their time."""
+    with xla_unoptimized():
+        yield
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -24,10 +24,19 @@ from espnet_tpu_torch.tasks.asr import ASRTask, read_token_list
 from espnet_tpu_torch.text.tokenizer import CharTokenizer, TokenIDConverter
 from espnet_tpu_torch.utils.config import load_yaml, loads_yaml
 from espnet_tpu_torch.utils.scoring import score_corpus
+from tests.torch_streaming_models import xla_unoptimized
 
 ROOT = Path(__file__).resolve().parents[1]
 FLAGSHIP = ROOT / "assets" / "synth_asr_flagship"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "yaml", "espnet_tpu"}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_references_unoptimized():
+    """The JAX references compile without XLA's optimisations: they run
+    once, at small shapes, where compiling is most of their time."""
+    with xla_unoptimized():
+        yield
 
 
 @pytest.fixture(autouse=True, scope="module")

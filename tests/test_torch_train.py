@@ -39,11 +39,19 @@ from espnet_tpu_torch.tasks.asr import ASRTask, build_model, read_token_list
 from espnet_tpu_torch.text.tokenizer import CharTokenizer, TokenIDConverter
 from espnet_tpu_torch.train.optim import build_optimizer
 from espnet_tpu_torch.train.trainer import make_train_step
-from tests.torch_streaming_models import flax_params
+from tests.torch_streaming_models import flax_params, xla_unoptimized
 
 FLAGSHIP = (Path(__file__).resolve().parents[1] / "assets"
             / "synth_asr_flagship")
 D = 64
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_references_unoptimized():
+    """The JAX references compile without XLA's optimisations: they run
+    once, at small shapes, where compiling is most of their time."""
+    with xla_unoptimized():
+        yield
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -47,11 +47,19 @@ from espnet_tpu_torch.tasks.asr_transducer import (ASRTransducerTask,
 from espnet_tpu_torch.train.checkpoint import load_checkpoint
 from espnet_tpu_torch.train.trainer import evaluate
 from espnet_tpu_torch.utils.config import dump_yaml
-from tests.torch_streaming_models import flax_params
+from tests.torch_streaming_models import flax_params, xla_unoptimized
 
 ASSET = (Path(__file__).resolve().parents[1] / "assets"
          / "synth_asr_transducer")
 V = 9
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_references_unoptimized():
+    """The JAX references compile without XLA's optimisations: they run
+    once, at small shapes, where compiling is most of their time."""
+    with xla_unoptimized():
+        yield
 
 
 @pytest.fixture(autouse=True, scope="module")
