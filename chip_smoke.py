@@ -191,6 +191,43 @@ Phases, each printing one JSON line:
     over the same waves: 10 steps at batch 16 (finite, unskipped, K2 4 a
     step), the valid loss reloaded, determinism and the grad check as
     phase 27's.
+29. diar_decode: assets/synth_diar through DiarizeSpeech on 50 test
+    dialogs of 8 s (the recipe's build_dialog from RandomState(16), the
+    recipe's hash(split) seed being lost), the recipe's eval (batch 8,
+    sigmoid > 0.5, frame DER over min(label, output) frames): DER (limit:
+    the JAX package's on the same dialogs, scripts/jax_a5_reference.json,
+    + 0.5 points), the frames whose decision differs from the JAX
+    package's CPU one, launches (K2 1 a batch; K2 at the decode batch's
+    shape, (8, 128000), n_fft 512, hop 128, 40 mels, is checked in phase
+    4 on its first 8 dialogs);
+30. diar_train: bin/diar_train.py on the asset's config (batch 16, Adam
+    1e-3, warm-up 500, clip 5) from its weights over 160 seeded train
+    and 16 valid dialogs: 10 steps (K2 1 a step and valid batch), as
+    train_path's records, grad_check, and determinism's three runs;
+31. codec, codec_train: CodecCoder on the codec recipe's 50 test
+    utterances (batch 8): SI-SNR and mel-L1 as egs/synth_asr/codec1/
+    run.py scores them (limits: the JAX package's within 0.05 dB and 1e-3
+    relative), the codes against the JAX package's (at least 99.9%
+    equal, each difference at a near-tie of the CPU's distances, within
+    1e-4 relative, or downstream of one); the mel loss through K2 on the
+    first batch against the plain version's (K2 at its shape, (8, 74560),
+    n_fft 256, hop 64, 40 mels, is checked in phase 4 on 8 held-out
+    utterances); then bin/gan_codec_train.py on the
+    asset's config (batch 8, Adam 3e-4, clip 5) over train_path's data:
+    10 steps (K2 2 a step and valid batch), grad_check (the RVQ codes
+    pinned as the ReLUs are) and determinism;
+32. speechlm, speechlm_train: the SpeechLM recipe's 100 valid utterances
+    tokenized by the port's codec (batch 32; against the JAX package's
+    tokens as the codes are), perplexity and accuracy as
+    egs/synth_asr/speechlm1/run.py computes them (batch 16, length 239)
+    on the JAX package's tokens (limits: 1e-3 relative, 0.002) and on the
+    port's, greedy generate_scan (temperature 0, 120 steps) from the JAX
+    package's 4 prompts of 1 s (tokens equal), the port's own prompts,
+    and the recipe's sampled continuations (top-k 30) decoded by the
+    codec: how many are non-silent (no limit); then
+    bin/speechlm_train.py on the asset's config (batch 16, Adam 3e-4)
+    over 160 tokenized train utterances: 10 steps (no kernel), grad_check
+    and determinism.
 
 Then the nvidia-smi line, one {"kernels": [...]} line (errors, times and
 bounds of phase 4, launches from the paths that run each kernel; a bound
@@ -391,6 +428,42 @@ VOCODER = {"fs": 16000, "n_fft": 512, "hop_length": 128, "n_mels": 80,
            "discriminator_conf": {"periods": [2, 3, 5], "scales": 2},
            "segment_size": 8192, "batch_size": 16, "steps_per_dispatch": 8,
            "keep_nbest_models": 2}
+
+# phases 29-32: diarization, the codec and the SpeechLM (ROADMAP A.5)
+DIAR = ROOT / "assets" / "synth_diar"
+CODEC = ROOT / "assets" / "synth_codec"
+SPEECHLM = ROOT / "assets" / "synth_speechlm"
+A5_REFERENCE = ROOT / "scripts" / "jax_a5_reference.json"
+N_DIALOGS = 50
+# the recipe seeds each split with hash(split), which Python salts per
+# process: the dialogs behind RESULTS.json's DER cannot be made again, so
+# both packages build them from these seeds (build_dialog, in order)
+DIAR_TEST_SEED = 16
+DIAR_TRAIN_SEED = 17
+DIAR_VALID_SEED = 18
+DIAR_N_TRAIN = 160
+DIAR_N_VALID = 16
+DIAR_BATCH = 8          # the recipe's eval batch
+DER_MARGIN = 0.005      # DER at most the JAX package's + 0.5 points
+N_CODEC_UTTS = 50       # the codec recipe's test set
+CODEC_BATCH = 8
+SI_SNR_MARGIN = 0.05    # dB either side of the JAX package's
+MEL_L1_REL = 1e-3
+CODES_EQUAL_MIN = 0.999
+NEAR_TIE_REL = 1e-4     # a code may differ where the two best distances
+#                         are this close, relative to the best
+N_SLM_VALID = 100       # the SpeechLM recipe's valid set
+SLM_TOKEN_BATCH = 32    # the recipe's tokenization batch
+SLM_BATCH = 16
+SLM_LEN = 2 + (74656 // 320 + 3) + 1    # bos, tag, delayed codes, eos
+PPL_REL = 1e-3
+SLM_ACC_TOL = 0.002
+N_PROMPTS = 4
+PROMPT_SAMPLES = 16000  # 1 s prompts
+GEN_STEPS = 120
+SAMPLE_TOPK = 30
+A5_STEPS = 10
+SLM_N_TRAIN = 160       # train_path's first 160 train utterances
 
 
 def vits_config_dict(workdir: Path) -> dict:
@@ -679,6 +752,7 @@ def grad_check(torch, task, config: Path, model_file: Path, batch) -> dict:
                                     moved.get(dev))
                  + grad_pin.pin_estimates(m, signs, moved.get(dev))
                  + grad_pin.pin_attention(m, signs, moved.get(dev))
+                 + grad_pin.pin_codes(m, signs, moved.get(dev))
                  if dev != "cpu_free" else [])
         loss, _, _ = m(**to_device(batch, dev.split("_")[0]))
         loss.backward()
@@ -732,7 +806,8 @@ def grad_check(torch, task, config: Path, model_file: Path, batch) -> dict:
                "cpu_worst10": worst_ten(cpu64, card64),
                "rows": "[param, this leg's distance, the other leg's]"}}
     far = {f"{leg}/{name}": row for leg, rows in moved.items()
-           for name, row in rows.items() if not row[2] <= grad_pin.MOVE_TOL}
+           for name, row in rows.items()
+           if not name.endswith(".codes") and not row[2] <= grad_pin.MOVE_TOL}
     if far:
         raise AssertionError(f"a pin moved entries by more than "
                              f"rounding: {far}")
@@ -2630,6 +2705,558 @@ def gan_phases(torch, _cuda, workdir: Path, smi: str):
     return vits_step, vits_valid, voc_step
 
 
+def unpack(d: dict):
+    """An array stored by scripts/jax_a5_reference.py:pack."""
+    import base64
+    import zlib
+
+    import numpy as np
+    return np.frombuffer(zlib.decompress(base64.b64decode(d["zlib_b64"])),
+                         d["dtype"]).reshape(d["shape"])
+
+
+def k2_at(torch, wave, *, fs: int, n_fft: int, hop_length: int,
+          n_mels: int) -> dict:
+    """K2 at one shape of a new path against its plain version (above
+    K2_MIN_MEL), launched twice for the same bits, timed by CUDA events
+    and by the profiler's device time beside the plain version and
+    torch.stft + power + mel product, with its bound: the FFT, window,
+    power and nonzero mel weights of each frame, the wave read and the
+    log-mel written."""
+    from espnet_tpu_torch.ops.logmel import fused_logmel, fused_logmel_plain
+    from espnet_tpu_torch.ops.mel import mel_matrix
+    kw = dict(fs=fs, n_fft=n_fft, hop_length=hop_length, n_mels=n_mels)
+    wave = wave.float().contiguous()
+    window = torch.hann_window(n_fft, device="cuda")
+    melw = mel_matrix(fs, n_fft, n_mels, 0.0, None, False, "cuda:0")
+
+    def kern():
+        return fused_logmel(wave, **kw)
+
+    def plain():
+        return fused_logmel_plain(wave, **kw)
+
+    def library():
+        spec = torch.stft(wave, n_fft, hop_length, window=window,
+                          center=True, pad_mode="reflect",
+                          return_complex=True)
+        power = spec.real.square() + spec.imag.square()
+        return torch.log(torch.clamp(power.transpose(1, 2) @ melw,
+                                     min=1e-10))
+
+    with torch.no_grad():
+        out, ref = kern(), plain()
+        sel = ref > math.log(K2_MIN_MEL)
+        B, S = wave.shape
+        frames = B * (S // hop_length + 1)
+        nnz = int((melw != 0).sum())
+        nf = n_fft // 2 + 1
+        row = {"shape": [B, S], "n_fft": n_fft, "hop_length": hop_length,
+               "n_mels": n_mels, "max_abs_err": float(
+                   (out - ref)[sel].abs().max()),
+               "same_bits_twice": bool(torch.equal(out, kern())),
+               "ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+               "library_ms": time_ms(torch, library),
+               "library_note": "torch.stft, the power and the mel product",
+               "flops": frames * (2.5 * n_fft * math.log2(n_fft) + n_fft
+                                  + 3 * nf + 2 * nnz + n_mels),
+               "bytes": 4.0 * (B * S + n_fft + nnz + frames * n_mels)}
+        prof = device_times(torch, {"kernel": kern, "library": library})
+    # None where the profiler listed none of the kernel's launches
+    row["device_ms"] = (sum(k["ms"] for k in prof["kernel"])
+                        if prof["kernel"] else None)
+    row["library_device_ms"] = sum(k["ms"] for k in prof["library"])
+    row["device_kernels"] = prof
+    bound(row)
+    if not (row["max_abs_err"] <= K2_TOL and row["same_bits_twice"]):
+        raise AssertionError(f"logmel_fwd at {row['shape']}, n_fft {n_fft}:"
+                             f" error {row['max_abs_err']}, same bits "
+                             f"{row['same_bits_twice']}")
+    return row
+
+
+def a5_config(task, asset: Path, workdir: Path, name: str, **extra):
+    """The asset's config with this run's data and output dir, 10 steps
+    of one epoch from the asset's weights, written to workdir/name.yaml."""
+    from espnet_tpu_torch.utils.config import dump_yaml, resolve_config
+    cfg = resolve_config(task.default_config(), asset / "config.yaml", {
+        "output_dir": str(workdir / name), "train_shape_file": [],
+        "valid_shape_file": [], "init_param": str(asset / "params_f16.npz"),
+        "max_epoch": 1, "num_iters_per_epoch": A5_STEPS, "log_interval": 1,
+        **extra})
+    dump_yaml(cfg, workdir / f"{name}.yaml")
+    return cfg, workdir / f"{name}.yaml"
+
+
+def a5_train(torch, _cuda, entry_main, task, model_cls, cfg, cfg_path,
+             asset, want: dict, loss_keys, valid_if) -> dict:
+    """An entry point's 10 steps with train_path's records: the
+    validation before (the asset) and after, a reload of the checkpoint
+    to the same validation loss, the launches of one valid batch."""
+    from espnet_tpu_torch import convert
+    from espnet_tpu_torch.train.checkpoint import load_checkpoint
+    from espnet_tpu_torch.train.trainer import evaluate, to_device
+    model, _ = task.build_model_from_file(cfg_path, asset)
+    before = evaluate(model, valid_if, "cuda")
+    trainer, per_step, launches, wall, peak = train_run(
+        torch, _cuda, entry_main, cfg_path, model_cls)
+    steps = trainer.step_stats
+    after = trainer.reporter.stats[1]["valid"]
+    flat, _, meta = load_checkpoint(Path(cfg["output_dir"]) / "checkpoint")
+    fresh = convert.load_flax_params(task.build_model(cfg), flat).to("cuda")
+    reloaded = evaluate(fresh, valid_if, "cuda")
+    _, vb = valid_if.collate_fn([valid_if.dataset[k] for k in
+                                 valid_if.epoch_batches(0)[0]])
+    vb = to_device(vb, "cuda")
+    fresh.eval()
+    _cuda.reset_launch_counts()
+    with torch.no_grad():
+        fresh(**vb)
+    valid_launches = dict(_cuda.LAUNCHES)
+    step_ms = [1e3 * s["train_time"] for s in steps]
+    full = {n: want.get(n, 0) for n in _cuda.LAUNCHES}
+    check_steps(steps, per_step, full, loss_keys, n_steps=A5_STEPS)
+    if valid_launches != full:
+        raise AssertionError(f"launches per valid batch {valid_launches}, "
+                             f"not {full}")
+    if not abs(reloaded["loss"] / after["loss"] - 1) <= RELOAD_TOL:
+        raise AssertionError(f"the reloaded checkpoint's validation loss "
+                             f"{reloaded['loss']} != {after['loss']}")
+    return {"steps": [{k: s[k] for k in (*loss_keys, "grad_norm",
+                                         "skipped")}
+                      | {"ms": ms, "launches": n}
+                      for s, ms, n in zip(steps, step_ms, per_step)],
+            "step_ms_median_3_10": statistics.median(step_ms[2:]),
+            "peak_memory_bytes": peak, "wall_seconds": wall,
+            "valid_before": before, "valid_after": after,
+            "valid_reloaded": reloaded, "checkpoint_epoch": meta["epoch"],
+            "step_launches": full, "valid_batch_launches": valid_launches}
+
+
+def code_margins(coder_cpu, wave):
+    """The CPU's RVQ on (B, S): per stage the codes and the gap of the
+    two best distances over |best| -> (codes (B, T, Q), margins
+    (B, T, Q))."""
+    import numpy as np
+    import torch
+    rvq = coder_cpu.model.rvq
+    gaps = []
+    own = rvq.nearest
+
+    def nearest(q, r, cb):
+        d = rvq.distances(r, cb)
+        two = torch.topk(d, 2, dim=-1, largest=False).values
+        gaps.append(((two[..., 1] - two[..., 0])
+                     / two[..., 0].abs().clamp(min=1e-30)).numpy())
+        return own(q, r, cb)
+
+    rvq.nearest = nearest
+    try:
+        codes = coder_cpu.encode(wave)
+    finally:
+        del rvq.nearest
+    return codes, np.stack(gaps, axis=-1)
+
+
+def code_agreement(ours, theirs, margins) -> dict:
+    """Codes of the card against the reference's: the equal share, and
+    each difference at a near-tie of the CPU's distances, or in a later
+    stage of a position whose first differing stage is one (its
+    residual then differs)."""
+    import numpy as np
+    differ = ours != theirs
+    first = np.argmax(differ, axis=-1)
+    pos_differ = differ.any(-1)
+    b, t = np.nonzero(pos_differ)
+    first_gap = margins[b, t, first[b, t]]
+    return {"n_codes": int(differ.size), "n_differ": int(differ.sum()),
+            "equal_share": float(1 - differ.mean()),
+            "positions_differ": int(pos_differ.sum()),
+            "first_stage_gaps": sorted(float(g) for g in first_gap)[-10:],
+            "near_tie_tol": NEAR_TIE_REL,
+            "all_at_near_ties": bool((first_gap <= NEAR_TIE_REL).all())}
+
+
+def a5_phases(torch, _cuda, workdir: Path, smi: str):
+    """Phases 29-32: diarization, the codec and the SpeechLM. -> the
+    launches of each new path per decode batch, train step and valid
+    batch."""
+    import hashlib
+
+    import numpy as np
+
+    from espnet_tpu_torch.bin import (diar_train, gan_codec_train,
+                                      speechlm_train)
+    from espnet_tpu_torch.bin.diar_inference import DiarizeSpeech, dialog_der
+    from espnet_tpu_torch.bin.gan_codec_inference import (CodecCoder,
+                                                          recon_scores)
+    from espnet_tpu_torch.bin.speechlm_inference import SpeechLMInference
+    from espnet_tpu_torch.data.fileio import NpyScpWriter, SoundScpReader
+    from espnet_tpu_torch.data.speechlm import (build_example,
+                                                write_dataset_json)
+    from espnet_tpu_torch.data.synth_speech import (SynthSpeechCorpus,
+                                                    dialogs,
+                                                    materialize_dialogs)
+    from espnet_tpu_torch.models.codec import CodecModel
+    from espnet_tpu_torch.models.diar import DiarizationModel
+    from espnet_tpu_torch.models.speechlm import SpeechLM
+    from espnet_tpu_torch.tasks.speechlm import (SpeechLMTask,
+                                                 build_vocab_from_cfg,
+                                                 recipe_token_list)
+    from espnet_tpu_torch.tasks.spk import DiarizationTask
+    from espnet_tpu_torch.tasks.ssl import CodecTask
+
+    ref = json.loads(A5_REFERENCE.read_text(encoding="utf-8"))
+    paths = {"decode": {}, "train_step": {}, "valid_batch": {}}
+
+    # 29. diar_decode: the seeded test dialogs, the recipe's eval
+    t0 = time.perf_counter()
+    waves, labels = dialogs("test", N_DIALOGS, DIAR_TEST_SEED)
+    data_s = time.perf_counter() - t0
+    # the labels to the bit; the waves' synthesis (scipy's filters) may
+    # round otherwise under another numpy / scipy: their energies to 1e-6
+    energy = np.asarray([np.sum(np.square(w, dtype=np.float64))
+                         for w in waves])
+    energy_rel = float(np.max(np.abs(energy / np.asarray(
+        ref["diar"]["waves_energy"]) - 1)))
+    waves_equal = hashlib.sha256(np.stack(waves).tobytes()).hexdigest() \
+        == ref["diar"]["waves_sha256"]
+    if hashlib.sha256(np.stack(labels).tobytes()).hexdigest() != \
+            ref["diar"]["labels_sha256"] or not energy_rel <= 1e-6:
+        raise AssertionError(f"the test dialogs differ from the JAX "
+                             f"reference's (energy {energy_rel})")
+    diar = DiarizeSpeech(DIAR / "config.yaml", DIAR)
+    win = waves[0].shape[0]
+    dialog_der(diar, waves[:DIAR_BATCH], labels[:DIAR_BATCH], win,
+               DIAR_BATCH)
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    der, acts = dialog_der(diar, waves, labels, win, DIAR_BATCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    n_batches = -(-N_DIALOGS // DIAR_BATCH)
+    per_batch = {n: v / n_batches for n, v in launches.items()}
+    paths["decode"]["diar"] = per_batch
+    jacts = unpack(ref["diar"]["decisions"])
+    frames_differ = int((np.stack(acts) != jacts).any(-1).sum())
+    emit({"phase": "diar_decode", "n_dialogs": N_DIALOGS,
+          "seed": DIAR_TEST_SEED, "batch": DIAR_BATCH, "der": der,
+          "der_jax": ref["diar"]["der"], "limit": ref["diar"]["der"]
+          + DER_MARGIN, "der_results_json": ref["diar"]["results_json_der"],
+          "frames_differ_from_cpu": frames_differ,
+          "waves_bit_equal": waves_equal, "waves_energy_rel": energy_rel,
+          "n_frames": int(jacts.shape[0] * jacts.shape[1]),
+          "data_seconds": data_s, "wall_seconds": wall,
+          "audio_s_per_s": N_DIALOGS * win / 16000 / wall,
+          "launches": launches})
+    if launches != {n: (n_batches if n == "logmel_fwd" else 0)
+                    for n in launches}:
+        raise AssertionError(f"diarization launches {launches} in "
+                             f"{n_batches} batches")
+    if not der <= ref["diar"]["der"] + DER_MARGIN:
+        raise AssertionError(f"DER {der} above the JAX package's "
+                             f"{ref['diar']['der']} + {DER_MARGIN}")
+
+    # 30. diar_train: the asset's config over seeded dialogs
+    ddir = workdir / "diar"
+    for split, n, seed in (("train", DIAR_N_TRAIN, DIAR_TRAIN_SEED),
+                           ("valid", DIAR_N_VALID, DIAR_VALID_SEED)):
+        materialize_dialogs(ddir / "data", split, n, seed)
+
+    def diar_cfg(name, **extra):
+        d = ddir / "data"
+        return a5_config(DiarizationTask, DIAR, ddir, name, **{
+            "train_data_path_and_name_and_type": [
+                f"{d}/train/wav.scp,speech,sound",
+                f"{d}/train/labels.scp,spk_labels,npy"],
+            "valid_data_path_and_name_and_type": [
+                f"{d}/valid/wav.scp,speech,sound",
+                f"{d}/valid/labels.scp,spk_labels,npy"], **extra})
+
+    dcfg, dcfg_path = diar_cfg("train")
+    dvalid_if = DiarizationTask.build_iter_factory(dcfg, train=False)
+    rec = a5_train(torch, _cuda, diar_train.main, DiarizationTask,
+                   DiarizationModel, dcfg, dcfg_path, DIAR,
+                   {"logmel_fwd": 1}, ("loss", "frame_acc"), dvalid_if)
+    paths["train_step"]["diar"] = rec["step_launches"]
+    paths["valid_batch"]["diar"] = rec["valid_batch_launches"]
+    _, gb = dvalid_if.collate_fn([dvalid_if.dataset[k] for k in
+                                  dvalid_if.dataset.keys()[:GRAD_BATCH]])
+    emit({"phase": "diar_train", "n_train": DIAR_N_TRAIN,
+          "n_valid": DIAR_N_VALID, **rec,
+          "grad_check": grad_check(torch, DiarizationTask, dcfg_path, DIAR,
+                                   gb),
+          "determinism": determinism(DiarizationTask, diar_cfg, "diar")})
+
+    # 31. codec: the recipe's 50 test utterances, then training
+    sdata = workdir / "stream_data"
+    if not (sdata / "test" / "wav.scp").exists() or not (
+            sdata / "valid" / "wav.scp").exists():
+        SynthSpeechCorpus().materialize(sdata, n_train=0,
+                                        n_valid=N_SLM_VALID,
+                                        n_test=N_CODEC_UTTS)
+    coder = CodecCoder(CODEC / "config.yaml", CODEC)
+    coder_cpu = CodecCoder(CODEC / "config.yaml", CODEC, device="cpu")
+    test = SoundScpReader(sdata / "test" / "wav.scp")
+    keys = sorted(test.keys())[:N_CODEC_UTTS]
+    utt = 74656
+    si_all, mel_all, codes_all, margins_all, walls = [], [], [], [], []
+    _cuda.reset_launch_counts()
+    for i in range(0, len(keys), CODEC_BATCH):
+        chunk = keys[i:i + CODEC_BATCH]
+        w = np.zeros((CODEC_BATCH, utt), np.float32)
+        for j, k in enumerate(chunk):
+            a = test[k][1]
+            w[j, :min(len(a), utt)] = a[:utt]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        codes = coder.encode(w)
+        recon = coder.decode(codes)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        recon = recon[:len(chunk)]
+        refw = w[:len(chunk), :recon.shape[1]]
+        si, mel = recon_scores(recon[:, :refw.shape[1]], refw)
+        si_all.extend(si.tolist())
+        mel_all.append(mel)
+        codes_all.append(codes[:len(chunk)])
+        margins_all.append(code_margins(coder_cpu, w)[1][:len(chunk)])
+        if i == 0:
+            first_pair = (torch.from_numpy(np.ascontiguousarray(
+                recon[:, :coder.model.hop * (utt // coder.model.hop)])),
+                torch.from_numpy(np.ascontiguousarray(
+                    w[:, :coder.model.hop * (utt // coder.model.hop)])))
+    codec_launches = dict(_cuda.LAUNCHES)
+    if any(codec_launches.values()):
+        raise AssertionError(f"a kernel ran in the codec's round trips: "
+                             f"{codec_launches}")
+    agree = code_agreement(np.concatenate(codes_all),
+                           unpack(ref["codec"]["codes"]).astype(np.int32),
+                           np.concatenate(margins_all))
+    si_snr, mel_l1 = float(np.mean(si_all)), float(np.mean(mel_all))
+    cref = ref["codec"]
+    # the mel loss through K2 between the first batch's decoded waves and
+    # the waves, cut to the hop, as the training loss takes them
+    from espnet_tpu_torch.models.tts.hifigan import melspec
+    mkw = dict(fs=16000, n_fft=256, hop_length=64, n_mels=40)
+    with torch.no_grad():
+        fake, real = first_pair[0].cuda(), first_pair[1].cuda()
+        loss_kernel = float(torch.mean(torch.abs(melspec(fake, **mkw)
+                                                 - melspec(real, **mkw))))
+        from espnet_tpu_torch.ops.logmel import fused_logmel_plain
+        loss_plain = float(torch.mean(torch.abs(
+            fused_logmel_plain(fake, **mkw) - fused_logmel_plain(real,
+                                                                 **mkw))))
+    mel_loss = {"kernel": loss_kernel, "plain": loss_plain,
+                "rel_diff": abs(loss_kernel / loss_plain - 1),
+                "tol": K2_MEL_LOSS_TOL}
+    emit({"phase": "codec", "n_utts": N_CODEC_UTTS, "batch": CODEC_BATCH,
+          "si_snr_db": si_snr, "si_snr_db_jax": cref["si_snr_db"],
+          "mel_l1": mel_l1, "mel_l1_jax": cref["mel_l1"],
+          "results_json": cref["results_json"],
+          "uncut_74656_jax": cref["uncut_74656"], "codes": agree,
+          "mel_loss_through_k2": mel_loss,
+          "batch_seconds": walls, "audio_s_per_s": sum(
+              len(test[k][1][:utt]) for k in keys) / 16000 / sum(walls),
+          "launches": codec_launches})
+    if not abs(si_snr - cref["si_snr_db"]) <= SI_SNR_MARGIN:
+        raise AssertionError(f"codec SI-SNR {si_snr} against JAX's "
+                             f"{cref['si_snr_db']}")
+    if not abs(mel_l1 / cref["mel_l1"] - 1) <= MEL_L1_REL:
+        raise AssertionError(f"codec mel-L1 {mel_l1} against JAX's "
+                             f"{cref['mel_l1']}")
+    if not (agree["equal_share"] >= CODES_EQUAL_MIN
+            and agree["all_at_near_ties"]):
+        raise AssertionError(f"codes against JAX's: {agree}")
+    if not mel_loss["rel_diff"] <= K2_MEL_LOSS_TOL:
+        raise AssertionError("the codec's mel loss through K2 differs from "
+                             "its plain version's")
+
+    fdata = workdir / "data"
+
+    def codec_cfg(name, **extra):
+        return a5_config(CodecTask, CODEC, workdir / "codec", name, **{
+            "train_data_path_and_name_and_type": [
+                f"{fdata}/train/wav.scp,speech,sound"],
+            "valid_data_path_and_name_and_type": [
+                f"{fdata}/valid/wav.scp,speech,sound"], **extra})
+
+    (workdir / "codec").mkdir(exist_ok=True)
+    ccfg, ccfg_path = codec_cfg("train")
+    cvalid_if = CodecTask.build_iter_factory(ccfg, train=False)
+    rec = a5_train(torch, _cuda, gan_codec_train.main, CodecTask,
+                   CodecModel, ccfg, ccfg_path, CODEC, {"logmel_fwd": 2},
+                   ("loss", "recon_l1", "mel_l1", "commit"), cvalid_if)
+    paths["train_step"]["codec"] = rec["step_launches"]
+    paths["valid_batch"]["codec"] = rec["valid_batch_launches"]
+    _, gb = cvalid_if.collate_fn([cvalid_if.dataset[k] for k in
+                                  cvalid_if.dataset.keys()[:4]])
+    emit({"phase": "codec_train", **rec,
+          "grad_check": grad_check(torch, CodecTask, ccfg_path, CODEC, gb),
+          "determinism": determinism(CodecTask, codec_cfg, "codec")})
+
+    # 32. speechlm: the recipe's valid set tokenized by the port's codec
+    sdir = workdir / "speechlm"
+    (sdir / "data").mkdir(parents=True, exist_ok=True)
+    tokens_txt = sdir / "data" / "tokens.txt"
+    tokens_txt.write_text("\n".join(recipe_token_list()) + "\n",
+                          encoding="utf-8")
+    hop = coder.model.hop
+    S = (utt // hop) * hop
+
+    def tokenize(reader, keys_, split):
+        codes_out, margins = [], []
+        with NpyScpWriter(sdir / "data" / split / "codes",
+                          sdir / "data" / split / "codes.scp") as wr:
+            for i in range(0, len(keys_), SLM_TOKEN_BATCH):
+                chunk = keys_[i:i + SLM_TOKEN_BATCH]
+                w = np.zeros((SLM_TOKEN_BATCH, S), np.float32)
+                for j, k in enumerate(chunk):
+                    a = reader[k][1][:S]
+                    w[j, :len(a)] = a
+                codes = coder.encode(w)
+                for j, k in enumerate(chunk):
+                    wr[k] = codes[j]
+                codes_out.append(codes[:len(chunk)])
+                if split == "valid":
+                    margins.append(code_margins(coder_cpu, w)[1][
+                        :len(chunk)])
+        write_dataset_json(
+            sdir / "data" / f"{split}_continuation.json",
+            "audio_continuation",
+            [{"name": "audio1", "type": "npy",
+              "path": str(sdir / "data" / split / "codes.scp")}], keys_)
+        return np.concatenate(codes_out), margins
+
+    vreader = SoundScpReader(sdata / "valid" / "wav.scp")
+    vkeys = sorted(vreader.keys())[:N_SLM_VALID]
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    vcodes, vmargins = tokenize(vreader, vkeys, "valid")
+    tok_s = time.perf_counter() - t0
+    treader = SoundScpReader(fdata / "train" / "wav.scp")
+    tokenize(treader, sorted(treader.keys())[:SLM_N_TRAIN], "train")
+    sref = ref["speechlm"]
+    jtoks = unpack(sref["tokens"]).astype(np.int32)
+    tok_agree = code_agreement(vcodes, jtoks, np.concatenate(vmargins))
+
+    def slm_cfg(name, **extra):
+        return a5_config(SpeechLMTask, SPEECHLM, sdir, name, **{
+            "multi_task_dataset": [
+                str(sdir / "data" / "train_continuation.json")],
+            "valid_multi_task_dataset": [
+                str(sdir / "data" / "valid_continuation.json")],
+            "text_token_list": str(tokens_txt), **extra})
+
+    scfg, scfg_path = slm_cfg("train")
+    lm, _ = SpeechLMTask.build_model_from_file(scfg_path, SPEECHLM)
+    vocab, _ = build_vocab_from_cfg(scfg)
+
+    def perplexity(codes_set):
+        """speechlm1/run.py:181-209: full batches of 16 at 239."""
+        tot_nll = tot_tok = tot_acc = 0.0
+        n_full = len(codes_set) - len(codes_set) % SLM_BATCH
+        with torch.no_grad():
+            for i in range(0, n_full, SLM_BATCH):
+                toks = np.full((SLM_BATCH, SLM_LEN, vocab.n_streams),
+                               vocab.pad, np.int64)
+                masks = np.zeros((SLM_BATCH, SLM_LEN), np.float32)
+                for j, c in enumerate(codes_set[i:i + SLM_BATCH]):
+                    ex = build_example("audio_continuation", {"audio1": c},
+                                       vocab)
+                    L = min(len(ex["tokens"]), SLM_LEN)
+                    toks[j, :L] = ex["tokens"][:L]
+                    masks[j, :L] = ex["loss_mask"][:L]
+                _, stats, _ = lm(torch.from_numpy(toks).cuda(),
+                                 torch.full((SLM_BATCH,), SLM_LEN,
+                                            device="cuda"),
+                                 loss_mask=torch.from_numpy(masks).cuda())
+                n = float(masks.sum())
+                tot_nll += float(stats["loss"]) * n
+                tot_acc += float(stats["acc"]) * n
+                tot_tok += n
+        return float(np.exp(tot_nll / tot_tok)), tot_acc / tot_tok, tot_tok
+
+    ppl, acc, n_tok = perplexity(jtoks)
+    ppl_own, acc_own, _ = perplexity(vcodes)
+    # greedy continuations of the JAX package's prompts, and the port's
+    # own prompts of the same 1 s
+    prompts = unpack(sref["prompts"]).astype(np.int64)
+    jgreedy = unpack(sref["greedy"]).astype(np.int64)
+    greedy, glens = [], []
+    t0 = time.perf_counter()
+    for p in prompts:
+        g, gl = lm.generate_scan(
+            torch.from_numpy(p[None]).cuda(),
+            torch.tensor([p.shape[0]], device="cuda"), GEN_STEPS,
+            temperature=0.0, topk=SAMPLE_TOPK, eos_id=vocab.eos)
+        greedy.append(g[0].cpu().numpy())
+        glens.append(int(gl[0]))
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    greedy = np.stack(greedy)
+    inf = SpeechLMInference(scfg_path, SPEECHLM, CODEC / "config.yaml",
+                            CODEC, topk=SAMPLE_TOPK)
+    own_prompts = np.stack([inf.prompt("audio_continuation", speech=vreader[
+        k][1][:PROMPT_SAMPLES])[0] for k in vkeys[:N_PROMPTS]])
+    n_ok, rms = 0, []
+    for k in vkeys[:N_PROMPTS]:
+        res = inf("audio_continuation", speech=vreader[k][1][
+            :PROMPT_SAMPLES], steps=GEN_STEPS)
+        gen = np.asarray(res.get("wav", np.zeros(0)), np.float32)
+        rms.append(float(np.sqrt(np.mean(gen ** 2))) if len(gen) else 0.0)
+        n_ok += int(rms[-1] > 1e-3)
+    slm_launches = dict(_cuda.LAUNCHES)
+    emit({"phase": "speechlm", "n_utts": N_SLM_VALID,
+          "tokenize_seconds": tok_s, "tokens": tok_agree,
+          "ppl_on_jax_tokens": ppl, "ppl_jax": sref["ppl"],
+          "acc_on_jax_tokens": acc, "acc_jax": sref["acc"],
+          "n_scored_tokens": n_tok, "ppl_on_own_tokens": ppl_own,
+          "acc_on_own_tokens": acc_own,
+          "results_json": sref["results_json"],
+          "greedy_differ": int((greedy != jgreedy).sum()),
+          "greedy_lengths": glens,
+          "greedy_lengths_jax": sref["greedy_lengths"],
+          "greedy_seconds": gen_s,
+          "greedy_frames_per_s": N_PROMPTS * GEN_STEPS / gen_s,
+          "own_prompts_differ": int((own_prompts != prompts).sum()),
+          "sampled_nonsilent": n_ok, "sampled_rms": rms,
+          "sampled_nonsilent_jax": sref["n_continuations_nonsilent"],
+          "launches": slm_launches})
+    if any(slm_launches.values()):
+        raise AssertionError(f"a kernel ran in the SpeechLM phase: "
+                             f"{slm_launches}")
+    if not abs(ppl / sref["ppl"] - 1) <= PPL_REL:
+        raise AssertionError(f"perplexity {ppl} against JAX's "
+                             f"{sref['ppl']}")
+    if not abs(acc - sref["acc"]) <= SLM_ACC_TOL:
+        raise AssertionError(f"accuracy {acc} against JAX's {sref['acc']}")
+    if not (tok_agree["equal_share"] >= CODES_EQUAL_MIN
+            and tok_agree["all_at_near_ties"]):
+        raise AssertionError(f"tokens against JAX's: {tok_agree}")
+    if (greedy != jgreedy).any() or glens != sref["greedy_lengths"]:
+        raise AssertionError("greedy continuations differ from JAX's")
+    if tok_agree["n_differ"] == 0 and (own_prompts != prompts).any():
+        raise AssertionError("the port's prompts differ from JAX's")
+
+    svalid_if = SpeechLMTask.build_iter_factory(scfg, train=False)
+    rec = a5_train(torch, _cuda, speechlm_train.main, SpeechLMTask,
+                   SpeechLM, scfg, scfg_path, SPEECHLM, {},
+                   ("loss", "acc"), svalid_if)
+    paths["train_step"]["speechlm"] = rec["step_launches"]
+    _, gb = svalid_if.collate_fn([svalid_if.dataset[k] for k in
+                                  svalid_if.dataset.keys()[:SLM_BATCH]])
+    emit({"phase": "speechlm_train", **rec,
+          "grad_check": grad_check(torch, SpeechLMTask, scfg_path, SPEECHLM,
+                                   gb),
+          "determinism": determinism(
+              SpeechLMTask, lambda n, **kw: slm_cfg(
+                  n, valid_multi_task_dataset=None, **kw), "speechlm")})
+    return paths
+
+
 def check_gan_steps(steps, timer, want: dict, n_steps: int):
     """n_steps finite, unskipped GAN steps, each with the launches
     ``want`` (the kernels it does not name at 0)."""
@@ -3109,6 +3736,23 @@ def run(torch, workdir: Path):
     # and behind the attention backward and SDPA's at the train shape
     profiled |= device_times(torch, {"flash_attn_bwd": k1b} | (
         {"sdpa_bwd": k1b_library} if k1b_library_ms is not None else {}))
+    # K2 at the shapes of phases 29 and 31 (checked and profiled here,
+    # where the profiler sees the kernel: late in a run it listed none of
+    # its launches): the diarization decode's first batch, 8 seeded test
+    # dialogs, and the codec mel loss's (8, 74560), 8 held-out utterances
+    # cut to the codec's hop
+    import numpy as np
+
+    from espnet_tpu_torch.data.synth_speech import dialogs
+    from espnet_tpu_torch.utils.config import load_yaml
+    dwaves, _ = dialogs("test", DIAR_BATCH, DIAR_TEST_SEED)
+    a5_k2 = {
+        "at_diar_decode_shape": k2_at(
+            torch, torch.from_numpy(np.stack(dwaves)).cuda(), fs=16000,
+            **load_yaml(DIAR / "config.yaml")["frontend_conf"]),
+        "at_codec_mel_loss_shape": k2_at(
+            torch, speech[:CODEC_BATCH, :(74656 // 320) * 320], fs=16000,
+            n_fft=256, hop_length=64, n_mels=40)}
 
     checks = [
         {"name": "flash_attn_fwd", "shape": [B, H, T, d], "tol": K1_TOL,
@@ -3591,6 +4235,9 @@ def run(torch, workdir: Path):
     # 27-28. VITS training and the GAN vocoder
     vits_step, vits_valid, voc_step = gan_phases(torch, _cuda, workdir, smi)
 
+    # 29-32. diarization, the codec and the SpeechLM
+    a5_paths = a5_phases(torch, _cuda, workdir, smi)
+
     print(smi, flush=True)
     # launches of each kernel per decode and per train step on the paths
     # that run it; "launches" is the count on its main path's run: the
@@ -3609,6 +4256,9 @@ def run(torch, workdir: Path):
                             "enh_s2t": s2t_step_launches,
                             "vits": vits_step, "gan_vocoder": voc_step},
              "valid_batch": {"vits": vits_valid}}
+    for kind_, per_model in a5_paths.items():
+        paths[kind_].update(per_model)
+    next(k for k in kernels if k["name"] == "logmel_fwd").update(a5_k2)
     main_runs = {"flash_attn_fwd": decode_launches,
                  "flash_attn_bwd": train_launches,
                  "logmel_fwd": decode_launches,
@@ -3625,6 +4275,7 @@ def run(torch, workdir: Path):
         | {key: kern[key] for key in (
             "bound_ms_fp32_cores", "chain_floor_ms", "at_train_shape",
             "at_long_form_train_batch", "at_mel_loss_shape",
+            "at_diar_decode_shape", "at_codec_mel_loss_shape",
             "device_kernels") if key in kern}
         | {"launches": main_runs[kern["name"]][kern["name"]]}
         | {f"launches_per_{kind_}": {

@@ -1,0 +1,21 @@
+"""SpeechLM training entry point (counterpart of
+espnet_tpu/bin/speechlm_train.py).
+
+    python -m espnet_tpu_torch.bin.speechlm_train --config train.yaml \\
+        --output_dir exp/speechlm [--key value ...] [--device cpu]
+
+Trains on the card unless ``--device cpu`` is given; without a card and
+without that option it raises.
+"""
+
+import sys
+
+from espnet_tpu_torch.tasks.speechlm import SpeechLMTask
+
+
+def main(argv=None):
+    return SpeechLMTask.main(argv=sys.argv[1:] if argv is None else argv)
+
+
+if __name__ == "__main__":
+    main()

@@ -164,7 +164,8 @@ def load_flax_params(model: torch.nn.Module, flat: Dict[str, np.ndarray],
 def state_dict_to_flax(model: nn.Module,
                        grad: bool = False) -> Dict[str, np.ndarray]:
     """{"params/a/layer0/kernel": array}: the model's parameters (or,
-    with ``grad``, their gradients) in the flax tree's naming and layouts
+    with ``grad``, their gradients, zeros where the loss does not reach
+    a parameter) in the flax tree's naming and layouts
     (f32 numpy); a model with ``flax_parts`` as {"<part>/params/...":
     array}."""
     parts = getattr(model, "flax_parts", None)
@@ -175,7 +176,10 @@ def state_dict_to_flax(model: nn.Module,
     out = {}
     for key, _, module, name in _params(model):
         param = getattr(module, name)
-        value = (param.grad if grad else param).detach().cpu().numpy()
+        if grad and param.grad is None:   # unused: jax.grad's zeros
+            value = np.zeros(tuple(param.shape), np.float32)
+        else:
+            value = (param.grad if grad else param).detach().cpu().numpy()
         out[key] = np.array(_layout(module, name)[2](value), order="C")
     return out
 

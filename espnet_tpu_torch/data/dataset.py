@@ -2,7 +2,8 @@
 (path, name, type) triples -> self[uid] = (uid, {name: value}), through
 the preprocessor (given the epoch, which the iterator sets, where it
 ``takes_epoch``); floats come out float32 and ints int32. The types read
-are ``sound`` (wav.scp) and ``text``; the JAX package's others raise."""
+are ``sound`` (wav.scp), ``text`` and ``npy`` (an scp of .npy arrays:
+diarization labels, codec codes); the JAX package's others raise."""
 
 from __future__ import annotations
 
@@ -10,7 +11,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
-from espnet_tpu_torch.data.fileio import SoundScpReader, read_2columns_text
+from espnet_tpu_torch.data.fileio import (NpyScpReader, SoundScpReader,
+                                          read_2columns_text)
 
 
 class _SoundLoader:
@@ -39,7 +41,16 @@ class _DictLoader:
 DATA_TYPES: Dict[str, Callable] = {
     "sound": _SoundLoader,
     "text": lambda p: _DictLoader(read_2columns_text(p)),
+    "npy": NpyScpReader,
 }
+
+
+def build_loader(path: str, typ: str):
+    """One loader of ``DATA_TYPES`` (the SpeechLM JSON's data entries)."""
+    if typ not in DATA_TYPES:
+        raise NotImplementedError(
+            f"data type {typ!r}: the port reads {list(DATA_TYPES)}")
+    return DATA_TYPES[typ](path)
 
 
 class ESPnetDataset:
@@ -49,12 +60,9 @@ class ESPnetDataset:
             raise ValueError("path_name_type_list must not be empty")
         self.loaders = {}
         for path, name, typ in path_name_type_list:
-            if typ not in DATA_TYPES:
-                raise NotImplementedError(
-                    f"data type {typ!r}: the port reads {list(DATA_TYPES)}")
             if name in self.loaders:
                 raise RuntimeError(f"duplicate data name {name!r}")
-            self.loaders[name] = DATA_TYPES[typ](path)
+            self.loaders[name] = build_loader(path, typ)
         self.preprocess = preprocess
         self.epoch = 0
 

@@ -1,8 +1,8 @@
 """Kaldi-style file IO (counterpart of espnet_tpu/data/fileio.py): text
 maps, number sequences, WAV read/write with the standard library and
 numpy (PCM 8/16/32-bit and IEEE float), without soundfile, the wav.scp
-writer of the separated speech, and the nested text-map writer of the
-decode outputs."""
+writer of the separated speech, the npy scp reader and writer (label and
+code arrays), and the nested text-map writer of the decode outputs."""
 
 from __future__ import annotations
 
@@ -121,6 +121,50 @@ class SoundScpWriter:
         rate, arr = value
         p = self.dir / f"{key}.wav"
         write_wav(p, rate, arr)
+        self.fscp.write(f"{key} {p}\n")
+
+    def close(self):
+        self.fscp.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        self.close()
+
+
+class NpyScpReader:
+    """key -> np.load(path) of a 'key path.npy' scp."""
+
+    def __init__(self, path):
+        self.data = read_2columns_text(path)
+
+    def __getitem__(self, key):
+        return np.load(self.data[key])
+
+    def keys(self):
+        return self.data.keys()
+
+    def __len__(self):
+        return len(self.data)
+
+    def __iter__(self):
+        return iter(self.data)
+
+
+class NpyScpWriter:
+    """writer[key] = array saves outdir/key.npy and adds 'key path' to the
+    scp."""
+
+    def __init__(self, outdir, scpfile):
+        self.dir = Path(outdir)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        Path(scpfile).parent.mkdir(parents=True, exist_ok=True)
+        self.fscp = open(scpfile, "w", encoding="utf-8")
+
+    def __setitem__(self, key: str, value: np.ndarray):
+        p = self.dir / f"{key}.npy"
+        np.save(p, value)
         self.fscp.write(f"{key} {p}\n")
 
     def close(self):

@@ -360,3 +360,65 @@ def concat_data_dir(src, dst, min_samples: int) -> List[Tuple[str, int, str]]:
             fw.write(f"{uid} {dst / 'wav' / f'{uid}.wav'}\n")
             ft.write(f"{uid} {text}\n")
     return out
+
+
+DIALOG_WIN = 8 * FS     # samples of a diarization dialog
+LABEL_HOP = 512         # label frame: frontend hop 128 x conv2d subsampling 4
+DIALOG_FRAMES = DIALOG_WIN // LABEL_HOP   # 250
+
+
+def build_dialog(corpus: SynthSpeechCorpus, split: str, index: int,
+                 rng: np.random.RandomState):
+    """A copy of egs/synth_asr/diar1/run.py:build_dialog: two speakers,
+    1-2 utterances each, placed at random in an 8 s window (overlap
+    allowed), with low noise -> (mix (DIALOG_WIN,), labels
+    (DIALOG_FRAMES, 2) int32). Draws from ``rng`` as the recipe does."""
+    sids = rng.choice(len(corpus.speakers), size=2, replace=False)
+    mix = np.zeros((DIALOG_WIN,), np.float32)
+    labels = np.zeros((DIALOG_FRAMES, 2), np.int32)
+    for s, sid in enumerate(sids):
+        n_utt = rng.randint(1, 3)
+        for u in range(n_utt):
+            wave, _, _ = corpus.utterance(
+                f"{split}-dia{index}-s{s}u{u}", rng.randint(1 << 30),
+                speaker_ids=[int(sid)])
+            if len(wave) > DIALOG_WIN:
+                wave = wave[:DIALOG_WIN]
+            start = rng.randint(0, DIALOG_WIN - len(wave) + 1)
+            gain = 10 ** (rng.uniform(-3, 3) / 20)
+            mix[start:start + len(wave)] += gain * wave
+            f0, f1 = start // LABEL_HOP, (start + len(wave)) // LABEL_HOP
+            labels[f0:min(f1 + 1, DIALOG_FRAMES), s] = 1
+    mix += 0.002 * rng.randn(DIALOG_WIN).astype(np.float32)
+    peak = np.abs(mix).max()
+    if peak > 0.99:
+        mix *= 0.99 / peak
+    return mix, labels
+
+
+def dialogs(split: str, n: int, seed: int, corpus=None):
+    """n dialogs of ``build_dialog`` from one RandomState(seed), in order
+    -> (waves, labels)."""
+    corpus = corpus or SynthSpeechCorpus()
+    rng = np.random.RandomState(seed)
+    out = [build_dialog(corpus, split, i, rng) for i in range(n)]
+    return [m for m, _ in out], [lab for _, lab in out]
+
+
+def materialize_dialogs(root, split: str, n: int, seed: int) -> None:
+    """The diarization recipe's stage-1 data dir root/split (wav.scp of
+    16-bit wavs, labels.scp of (T, 2) npy labels, ids ``{split}_{i:05d}``)
+    from RandomState(seed) in place of the recipe's hash(split)."""
+    from pathlib import Path
+
+    from espnet_tpu_torch.data.fileio import NpyScpWriter, write_wav
+    d = Path(root) / split
+    (d / "wav").mkdir(parents=True, exist_ok=True)
+    waves, labels = dialogs(split, n, seed)
+    with open(d / "wav.scp", "w") as fw, \
+            NpyScpWriter(d / "lab", d / "labels.scp") as fl:
+        for i, (mix, lab) in enumerate(zip(waves, labels)):
+            uid = f"{split}_{i:05d}"
+            write_wav(d / "wav" / f"{uid}.wav", FS, mix)
+            fw.write(f"{uid} {d / 'wav' / f'{uid}.wav'}\n")
+            fl[uid] = lab

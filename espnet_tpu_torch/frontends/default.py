@@ -1,5 +1,5 @@
-"""Default frontend: wave -> STFT power -> log-mel, and GlobalMVN
-(counterpart of espnet_tpu/frontends/default.py).
+"""Default frontend: wave -> STFT power -> log-mel, GlobalMVN and
+UtteranceMVN (counterpart of espnet_tpu/frontends/default.py).
 
 Where ``_fused_eligible()`` holds, the frontend computes its features
 with ``ops.logmel.fused_logmel``: the log-mel CUDA kernel on the card
@@ -104,3 +104,34 @@ class GlobalMVN:
         istd = torch.from_numpy(self.istd).to(x.device)
         x = (x - mean) * istd
         return mask_fill(x, make_non_pad_mask(lengths, x.shape[1])), lengths
+
+
+@dataclasses.dataclass(frozen=True)
+class UtteranceMVN:
+    """Per-utterance mean (and variance) normalisation over each row's
+    valid frames, padding set to 0. With ``norm_means`` False and
+    ``norm_vars`` True the variance is the centred x's but it scales the
+    raw x, as the reference's utterance_mvn.py does; with both False x
+    passes as it is."""
+
+    norm_means: bool = True
+    norm_vars: bool = False
+    eps: float = 1.0e-20
+
+    def __call__(self, x: torch.Tensor, lengths: torch.Tensor):
+        mask = make_non_pad_mask(lengths, x.shape[1])[:, :, None]
+        n = torch.clamp(lengths[:, None, None].to(x.dtype), min=1.0)
+        zero = x.new_zeros(())
+        mean = torch.where(mask, x, zero).sum(1, keepdim=True) / n
+        if self.norm_means:
+            x = torch.where(mask, x - mean, zero)
+            if self.norm_vars:
+                var = torch.where(mask, x * x, zero).sum(1, keepdim=True) / n
+                x = x * torch.rsqrt(torch.clamp(var, min=self.eps))
+            return x, lengths
+        if self.norm_vars:
+            var = torch.where(mask, (x - mean) ** 2, zero).sum(
+                1, keepdim=True) / n
+            x = torch.where(mask, x * torch.rsqrt(
+                torch.clamp(var, min=self.eps)), zero)
+        return x, lengths

@@ -1,7 +1,8 @@
 """Hybrid CTC/attention ASR model (counterpart of
 espnet_tpu/models/asr.py:ASRModel).
 
-encode = frontend -> SpecAug (training only) -> GlobalMVN -> encoder
+encode = frontend -> SpecAug (training only) -> GlobalMVN or
+UtteranceMVN -> encoder
 (conformer, streaming conformer, transformer or Longformer); a CTC head;
 the transformer decoder, teacher-forced for the loss and one step at a
 time for beam search. The loss is
@@ -17,7 +18,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from espnet_tpu_torch.frontends.default import DefaultFrontend, GlobalMVN
+from espnet_tpu_torch.frontends.default import (DefaultFrontend, GlobalMVN,
+                                                UtteranceMVN)
 from espnet_tpu_torch.nn.conformer import ConformerEncoder
 from espnet_tpu_torch.nn.decoder import TransformerDecoder
 from espnet_tpu_torch.nn.streaming_encoder import StreamingConformerEncoder
@@ -58,7 +60,8 @@ class CTCHead(nn.Module):
 class ASRModel(nn.Module):
 
     def __init__(self, vocab_size: int, token_list, frontend: DefaultFrontend,
-                 normalize: Optional[GlobalMVN], encoder_conf: dict,
+                 normalize: Optional[GlobalMVN | UtteranceMVN],
+                 encoder_conf: dict,
                  decoder_conf: Optional[dict], ctc_weight: float = 0.5,
                  blank_id: int = 0, specaug_conf: Optional[dict] = None,
                  lsm_weight: float = 0.0,

@@ -9,7 +9,9 @@ defaults (the JAX package's ``model.init``) rather than torch's:
 - ``pos_bias_u`` and ``pos_bias_v``: xavier_uniform;
 - the hidden kernels of an LSTM cell (hi, hf, hg, ho): orthogonal, as
   flax's ``OptimizedLSTMCell`` has them; its input kernels lecun_normal;
-- LayerNorm: ones and zeros.
+- LayerNorm: ones and zeros;
+- a module's own parameters that flax initialises in its own way (the
+  codec's codebooks, normal(1.0)): its ``flax_init_(generator)``.
 
 The draws come from a seeded ``torch.Generator`` and are not flax's bits:
 what matches is each initialiser's distribution.
@@ -75,6 +77,8 @@ def init_like_flax(model: nn.Module, generator: torch.Generator) -> nn.Module:
             elif isinstance(module, RelPositionMultiHeadedAttention):
                 xavier_uniform_(module.pos_bias_u, generator)
                 xavier_uniform_(module.pos_bias_v, generator)
+            elif hasattr(module, "flax_init_"):
+                module.flax_init_(generator)
     for module in model.modules():   # after the Linears inside the cells
         if isinstance(module, LSTMCell):
             for gate in module.GATES:

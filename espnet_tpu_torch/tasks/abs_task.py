@@ -134,12 +134,14 @@ def load_packed_config(config_file) -> Dict[str, Any]:
     return cfg
 
 
-def model_from_file(build, config_file, model_file, device):
+def model_from_file(build, config_file, model_file, device, overrides=None):
     """-> (``build(cfg)`` with the weights of ``model_file``, on ``device``
-    in eval mode, and cfg). ``model_file`` is a checkpoint directory of
-    the trainer, a directory holding ``params_f16.npz``, or an npz file;
-    None initialises as flax would, from seed 0."""
+    in eval mode, and cfg, updated by ``overrides``). ``model_file`` is a
+    checkpoint directory of the trainer, a directory holding
+    ``params_f16.npz``, or an npz file; None initialises as flax would,
+    from seed 0."""
     cfg = load_packed_config(config_file)
+    cfg.update(overrides or {})
     model = build(cfg)
     if model_file is None:
         init_like_flax(model, torch.Generator().manual_seed(0))
@@ -166,11 +168,13 @@ class AbsTask:
 
     # ---- shared machinery -----------------------------------------
     @classmethod
-    def build_model_from_file(cls, config_file, model_file, device=None):
+    def build_model_from_file(cls, config_file, model_file, device=None,
+                              overrides=None):
         """-> (the task's model with the weights of ``model_file``, in eval
-        mode on ``device`` (None: the card), and its config)."""
+        mode on ``device`` (None: the card), and its config, updated by
+        ``overrides``)."""
         return model_from_file(cls.build_model, config_file, model_file,
-                               resolve_device(device))
+                               resolve_device(device), overrides)
 
     @classmethod
     def default_config(cls) -> Dict[str, Any]:
@@ -247,8 +251,10 @@ class AbsTask:
         out.mkdir(parents=True, exist_ok=True)
         dump_yaml(cfg, out / "config.yaml")
         train_if = cls.build_iter_factory(cfg, train=True)
+        has_valid = (cfg["valid_data_path_and_name_and_type"]
+                     or cfg.get("valid_multi_task_dataset"))
         valid_if = (cls.build_iter_factory(cfg, train=False)
-                    if cfg["valid_data_path_and_name_and_type"] else None)
+                    if has_valid else None)
         return out, train_if, valid_if
 
     @classmethod

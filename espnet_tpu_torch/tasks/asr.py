@@ -19,7 +19,8 @@ from typing import Any, Dict
 import torch
 
 from espnet_tpu_torch.data.preprocessor import CommonPreprocessor
-from espnet_tpu_torch.frontends.default import DefaultFrontend, GlobalMVN
+from espnet_tpu_torch.frontends.default import (DefaultFrontend, GlobalMVN,
+                                                UtteranceMVN)
 from espnet_tpu_torch.models.asr import ENCODER_CLASSES, ASRModel
 from espnet_tpu_torch.tasks.abs_task import AbsTask
 
@@ -51,17 +52,21 @@ def fp32_and_deterministic():
 
 
 def build_frontend(cfg: Dict[str, Any]):
-    """-> (DefaultFrontend, GlobalMVN or None, SpecAug conf or None): the
-    feature path both ASR models share."""
+    """-> (DefaultFrontend, GlobalMVN, UtteranceMVN or None, SpecAug conf
+    or None): the feature path both ASR models share. ``global_mvn``
+    without a stats file falls back to UtteranceMVN, as the JAX package's
+    task does; UtteranceMVN takes its defaults, as there."""
     _require(cfg, "frontend", {"default"}, "default")
-    normalize = _require(cfg, "normalize", {"global_mvn", None}, None)
+    normalize = _require(cfg, "normalize",
+                         {"global_mvn", "utterance_mvn", None}, None)
     stats = None
     if normalize == "global_mvn":
         stats_file = cfg.get("stats_file") or (
             cfg.get("normalize_conf") or {}).get("stats_file")
-        if not stats_file:
-            raise NotImplementedError("global_mvn without a stats_file")
-        stats = GlobalMVN.from_file(stats_file)
+        stats = (GlobalMVN.from_file(stats_file) if stats_file
+                 else UtteranceMVN())
+    elif normalize == "utterance_mvn":
+        stats = UtteranceMVN()
     specaug = _require(cfg, "specaug", {"specaug", None}, None)
     return (DefaultFrontend(**dict(cfg.get("frontend_conf") or {})), stats,
             dict(cfg.get("specaug_conf") or {}) if specaug == "specaug"

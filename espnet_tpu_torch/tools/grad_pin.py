@@ -191,6 +191,36 @@ def pin_alignment(model, store: dict, moved: dict | None = None) -> list:
     return handles
 
 
+def pin_codes(model, store: dict, moved: dict | None = None) -> list:
+    """Each ResidualVQ's codes, pinned as the alignment path is: with
+    ``moved`` None noted per stage in ``store``; else the noted codes
+    are used, and where its own argmin differs
+    ``moved["<name>.codes"]`` is [codes moved, stages]. Returns the
+    handles."""
+    from espnet_tpu_torch.models.codec import ResidualVQ
+    handles = []
+    for name, mod in model.named_modules():
+        if isinstance(mod, ResidualVQ):
+            key = f"{name}.codes"
+
+            def nearest(q, r, cb, key=key, own=mod.nearest):
+                idx = own(q, r, cb)
+                if moved is None:
+                    store[f"{key}{q}"] = idx.cpu()
+                    return idx
+                want = store[f"{key}{q}"].to(idx.device)
+                n = int((want != idx).sum())
+                if n:
+                    row = moved.setdefault(key, [0, 0])
+                    row[0] += n
+                    row[1] += 1
+                return want
+
+            mod.nearest = nearest
+            handles.append(_Restore(mod, "nearest"))
+    return handles
+
+
 class _Restore:
     """A handle whose remove() takes an instance's own attribute away
     again, leaving its class's."""

@@ -996,3 +996,156 @@ def test_gan_training_on_the_card_repeats_itself_bit_for_bit(tmp_path,
     for name in finals[0]:
         np.testing.assert_array_equal(finals[1][name], finals[0][name],
                                       err_msg=name)
+
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,n_fft,hop,n_mels", [
+    ((2, 128000), 512, 128, 40),     # diarization's frontend
+    ((2, 74560), 256, 64, 40)])      # the codec's mel loss
+def test_k2_at_the_diarization_and_codec_shapes(shape, n_fft, hop, n_mels):
+    # within 1e-3 of the plain version (log domain, above 1e-8), the same
+    # bits twice; the codec's mel loss through it within 1e-4 of the plain
+    # one's, its gradient finite
+    _cuda_or_skip()
+    from espnet_tpu_torch.models.tts.hifigan import melspec
+    g = torch.Generator(device="cuda").manual_seed(1)
+    wave = 0.3 * torch.randn(*shape, generator=g, device="cuda")
+    kw = dict(fs=16000, n_fft=n_fft, hop_length=hop, n_mels=n_mels)
+    _cuda.reset_launch_counts()
+    out = fused_logmel(wave, **kw)
+    assert _cuda.LAUNCHES["logmel_fwd"] == 1
+    ref = fused_logmel_plain(wave, **kw)
+    sel = ref > float(np.log(1e-8))
+    assert float((out - ref)[sel].abs().max()) <= 1e-3
+    assert torch.equal(out, fused_logmel(wave, **kw))
+    fake = (wave + 0.05 * torch.randn(*shape, generator=g, device="cuda")
+            ).requires_grad_()
+    loss = (melspec(fake, **kw) - melspec(wave, **kw)).abs().mean()
+    plain = (fused_logmel_plain(fake, **kw) - ref).abs().mean()
+    assert abs(float(loss.detach()) / float(plain.detach()) - 1) <= 1e-4
+    grad, = torch.autograd.grad(loss, fake)
+    assert torch.isfinite(grad).all() and float(grad.abs().max()) > 0
+
+
+@pytest.mark.gpu
+def test_diarization_codec_and_speechlm_on_the_card_match_the_cpu():
+    # the three assets: diarization logits within 1e-4 of their largest
+    # (K2 launched once), the same codec codes and decoded waves within
+    # 1e-4, and the same greedy SpeechLM continuation
+    _cuda_or_skip()
+    from espnet_tpu_torch.data.synth_speech import SynthSpeechCorpus, dialogs
+    from espnet_tpu_torch.tasks.speechlm import (SpeechLMTask,
+                                                 recipe_token_list)
+    from espnet_tpu_torch.tasks.spk import DiarizationTask
+    from espnet_tpu_torch.tasks.ssl import CodecTask
+    diar, codec, slm = (ROOT / "assets" / a for a in (
+        "synth_diar", "synth_codec", "synth_speechlm"))
+    waves, _ = dialogs("test", 2, 16)
+    w = torch.from_numpy(np.stack(waves))
+    lens = torch.full((2,), w.shape[1])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m, _ = DiarizationTask.build_model_from_file(diar / "config.yaml",
+                                                     diar, dev)
+        _cuda.reset_launch_counts()
+        with torch.no_grad():
+            out[dev] = m.predict(w.to(dev), lens.to(dev))[0].cpu()
+        if dev == "cuda":
+            assert _cuda.LAUNCHES["logmel_fwd"] == 1
+    assert _relative_err(out["cuda"], out["cpu"]) <= 1e-4
+    u = SynthSpeechCorpus().utterance("test", 0)[0][:74560]
+    x = torch.zeros(1, 74560)
+    x[0, :len(u)] = torch.from_numpy(u)
+    codes, waves_out = {}, {}
+    for dev in ("cuda", "cpu"):
+        m, _ = CodecTask.build_model_from_file(codec / "config.yaml", codec,
+                                               dev)
+        with torch.no_grad():
+            codes[dev] = m.encode(x.to(dev)).cpu()
+            waves_out[dev] = m.decode(codes["cpu" if "cpu" in codes
+                                            else dev].to(dev)).cpu()
+    assert torch.equal(codes["cuda"], codes["cpu"])
+    assert _relative_err(waves_out["cuda"], waves_out["cpu"]) <= 1e-4
+    gen = {}
+    for dev in ("cuda", "cpu"):
+        m, _ = SpeechLMTask.build_model_from_file(
+            slm / "config.yaml", slm, dev,
+            {"text_token_list": recipe_token_list()})
+        prompt = torch.cat([torch.full((1, 2, 4), 1), 33 + codes["cpu"][
+            :, :20]], dim=1).to(dev)
+        gen[dev] = m.generate_scan(prompt, torch.tensor([22], device=dev),
+                                   30, temperature=0.0, eos_id=2)[0].cpu()
+    assert torch.equal(gen["cuda"], gen["cpu"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("task", ["diar", "codec", "speechlm"])
+def test_a5_training_on_the_card_repeats_itself_bit_for_bit(tmp_path, task):
+    # two 2-step runs of each entry point from one seed (dropout on) end
+    # with the same parameters: the codec's codebook gather and the
+    # SpeechLM's embeddings are one-hot products, whose gradients repeat
+    _cuda_or_skip()
+    from espnet_tpu_torch.bin import (diar_train, gan_codec_train,
+                                      speechlm_train)
+    from espnet_tpu_torch.data.fileio import NpyScpWriter
+    from espnet_tpu_torch.data.speechlm import write_dataset_json
+    from espnet_tpu_torch.data.synth_speech import (SynthSpeechCorpus,
+                                                    materialize_dialogs)
+    from espnet_tpu_torch.train.checkpoint import load_checkpoint
+    from espnet_tpu_torch.utils.config import dump_yaml
+    data = tmp_path / "data"
+    base = {"max_epoch": 2, "num_iters_per_epoch": 1, "batch_size": 2,
+            "batch_type": "unsorted", "log_interval": 1,
+            "valid_data_path_and_name_and_type": []}
+    if task == "diar":
+        materialize_dialogs(data, "train", 2, 0)
+        cfg = dict(base, frontend_conf={"n_fft": 512, "hop_length": 128,
+                                        "n_mels": 40},
+                   encoder_conf={"output_size": 32, "attention_heads": 2,
+                                 "linear_units": 48, "num_blocks": 2,
+                                 "input_layer": "conv2d"},
+                   collate_fixed_lengths={"speech": 128000,
+                                          "spk_labels": 250},
+                   train_data_path_and_name_and_type=[
+                       f"{data}/train/wav.scp,speech,sound",
+                       f"{data}/train/labels.scp,spk_labels,npy"])
+        main, kernel_launches = diar_train.main, 2
+    elif task == "codec":
+        SynthSpeechCorpus().materialize(data, n_train=2, n_valid=0,
+                                        n_test=0)
+        cfg = dict(base, codec_conf={"channels": 8, "strides": [2, 4, 5, 8],
+                                     "code_dim": 16, "num_quantizers": 2,
+                                     "codebook_size": 16},
+                   collate_fixed_lengths={"speech": 74656},
+                   train_data_path_and_name_and_type=[
+                       f"{data}/train/wav.scp,speech,sound"])
+        main, kernel_launches = gan_codec_train.main, 4
+    else:
+        rng = np.random.RandomState(0)
+        with NpyScpWriter(data / "codes", data / "codes.scp") as wr:
+            for i in range(2):
+                wr[f"u{i}"] = rng.randint(0, 16, (40, 2)).astype(np.int32)
+        write_dataset_json(data / "train.json", "audio_continuation",
+                           [{"name": "audio1", "type": "npy",
+                             "path": str(data / "codes.scp")}], ["u0", "u1"])
+        (tmp_path / "tokens.txt").write_text("a\nb\n")
+        cfg = dict(base, d_model=32, heads=2, units=48, layers=2,
+                   multi_task_dataset=[str(data / "train.json")],
+                   text_token_list=str(tmp_path / "tokens.txt"),
+                   codebook_size=16, n_streams=2)
+        main, kernel_launches = speechlm_train.main, 0
+    finals = []
+    for run in ("a", "b"):
+        dump_yaml(dict(cfg, output_dir=str(tmp_path / run)),
+                  tmp_path / f"{run}.yaml")
+        _cuda.reset_launch_counts()
+        _, trainer = main(["--config", str(tmp_path / f"{run}.yaml")])
+        assert [s["skipped"] for s in trainer.step_stats] == [0.0] * 2
+        assert _cuda.LAUNCHES["logmel_fwd"] == kernel_launches
+        finals.append(load_checkpoint(tmp_path / run / "checkpoint")[0])
+    for name in finals[0]:
+        np.testing.assert_array_equal(finals[1][name], finals[0][name],
+                                      err_msg=name)
