@@ -228,6 +228,35 @@ Phases, each printing one JSON line:
     bin/speechlm_train.py on the asset's config (batch 16, Adam 3e-4)
     over 160 tokenized train utterances: 10 steps (no kernel), grad_check
     and determinism.
+33. spk_verify: assets/synth_spk_ecapa through SpeakerEmbedding on the
+    speaker recipe's held-out set (egs/synth_asr/spk1/run.py: the 200
+    test utterances, its 600 trials from write_trials at seed 17), as
+    its stage 3 embeds them (each cut and zero-padded to 74656 samples
+    with its true length, batches of 25, zero rows filling the last):
+    every trial's cosine within 1e-4 of the JAX package's fp32 CPU score
+    (scripts/jax_spk_reference.json), the EER and minDCF equal to its
+    figures (one trial at most deciding otherwise, at a score within
+    1e-4 of the operating point), RESULTS.json's beside them, audio
+    seconds per second, peak memory, no kernel launched (ECAPA's hop of
+    160 does not divide its n_fft of 512); the CLIs spk_embed_extract
+    and spk_inference.main on the first 8 test utterances, their .npy
+    files equal to SpeakerEmbedding's and within 1e-4 of the JAX
+    package's;
+34. spk_train: bin/spk_train.py on the asset's config from its weights
+    over 160 train and 100 valid utterances (the recipe's 1200 cut), its
+    40-trial valid list on: 2 epochs of 5 steps, the margin 0.0 then
+    0.06, the trial EER in each valid epoch and before, train_path's
+    records, grad_check and determinism;
+35. cls, cls_train: the cls1 recipe's model (egs/synth_asr/cls1/run.py,
+    4-block Transformer, d=144) with seed_flat's weights on its 200 test
+    keywords in one batch (as its stage 3): the logits on the card within
+    1e-4 of the CPU's and of the JAX package's, the same predictions, K2
+    once (K2 at that batch's shape, (200, 15216), n_fft 512, hop 128, 80
+    mels, is checked in phase 4); cls_train for 10 steps over its 160
+    train keywords (K2 1 a step and valid batch), run twice
+    bit-identical, grad_check, determinism; the LID and ASVspoof entry
+    points (bin/lid_train.py, bin/asvspoof_train.py: 3 steps; their
+    inference CLIs on 8 test utterances).
 
 Then the nvidia-smi line, one {"kernels": [...]} line (errors, times and
 bounds of phase 4, launches from the paths that run each kernel; a bound
@@ -465,6 +494,29 @@ SAMPLE_TOPK = 30
 A5_STEPS = 10
 SLM_N_TRAIN = 160       # train_path's first 160 train utterances
 
+# phases 33-35: speaker verification, classification, LID and ASVspoof
+SPK = ROOT / "assets" / "synth_spk_ecapa"
+SPK_REFERENCE = ROOT / "scripts" / "jax_spk_reference.json"
+SPK_N_TRAIN = 160       # the recipe's 1200 train utterances, cut
+SPK_N_VALID = 100       # the recipe's valid and test sets
+SPK_N_TEST = 200
+SPK_TRIALS = 600        # write_trials(..., "test", 600), seed 17
+SPK_VALID_TRIALS = 40
+SPK_LEN = 74656         # stage 3: each utterance cut and padded to this
+SPK_BATCH = 25          # in batches of 25, zero rows filling the last
+SPK_EPOCHS = 2          # of 5 steps: the margin 0.0, then 0.06
+SPK_STEPS_PER_EPOCH = 5
+SCORE_TOL = 1e-4        # each trial's cosine against the JAX package's
+N_SPK_CLI = 8
+CLS_N_KEYWORDS = 30     # egs/synth_asr/cls1/run.py: one word of 30
+CLS_N_TRAIN = 160       # the recipe's 1500, cut
+CLS_N_VALID = 100
+CLS_N_TEST = 200        # stage 3 scores all 200 in one batch
+CLS_SEED = 0            # the classifier's weights: seed_flat(..., 0)
+CLS_LOGIT_TOL = 1e-4    # of the largest |logit|
+CLS_STEPS = 10
+SHORT_STEPS = 3         # the LID and ASVspoof entry points
+
 
 def vits_config_dict(workdir: Path) -> dict:
     """The VITS asset's config (the recipe's), over the speaker-0 data dirs
@@ -499,6 +551,83 @@ def vits_draws(i: int, spec_lengths, n_frames: int, z: int = 192,
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def seed_flat(shapes: dict, seed: int) -> dict:
+    """Weights of a flax tree {key: shape} from numpy's RandomState(seed),
+    key by key in sorted order, at init scale: kernels N(0, 1 / fan-in),
+    LayerNorm scales 1 + N(0, 0.05^2), the rest N(0, 0.05^2)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    flat = {}
+    for key in sorted(shapes):
+        shape, name = tuple(shapes[key]), key.rsplit("/", 1)[-1]
+        x = np.asarray(rng.randn(*shape))
+        if name == "kernel":
+            x = x / np.sqrt(np.prod(shape[:-1]))
+        elif name == "scale":
+            x = 1.0 + 0.05 * x
+        else:
+            x = 0.05 * x
+        flat[key] = x.astype(np.float32)
+    return flat
+
+
+def cls_config_dict(data: Path) -> dict:
+    """egs/synth_asr/cls1/run.py's config over the data dirs under
+    ``data`` (train, valid; ``label`` files of keyword ids)."""
+    return {
+        "n_classes": CLS_N_KEYWORDS,
+        "frontend_conf": {"n_fft": 512, "hop_length": 128, "n_mels": 80},
+        "encoder": "transformer",
+        "encoder_conf": {"output_size": 144, "attention_heads": 4,
+                         "linear_units": 576, "num_blocks": 4,
+                         "input_layer": "conv2d"},
+        "optim": "adam", "optim_conf": {"lr": 1e-3},
+        "scheduler": "warmuplr", "scheduler_conf": {"warmup_steps": 300},
+        "grad_clip": 5.0, "batch_type": "unsorted", "batch_size": 32,
+        "keep_nbest_models": 2, "patience": None, "log_interval": 1,
+        "steps_per_dispatch": 4,
+        "train_data_path_and_name_and_type": [
+            f"{data}/train/wav.scp,speech,sound",
+            f"{data}/train/label,label,text_int"],
+        "valid_data_path_and_name_and_type": [
+            f"{data}/valid/wav.scp,speech,sound",
+            f"{data}/valid/label,label,text_int"]}
+
+
+def cls_data(corpus, write_wav, read_wav, bucket_length, data: Path,
+             splits=(("train", CLS_N_TRAIN), ("valid", CLS_N_VALID),
+                     ("test", CLS_N_TEST))):
+    """The cls1 recipe's stage 1 (single-keyword 16-bit WAVs, keyword
+    ids in ``label``) under ``data``, and its stage 3 batch: the test
+    split read back, keys sorted, zero-padded to the bucket of the
+    longest (base 4096, x1.3). The corpus and the file helpers are
+    either package's. -> (keys, (B, L) speech, (B,) lengths, labels)."""
+    import numpy as np
+    word2id = {w: i for i, w in enumerate(corpus.words)}
+    for split, n in splits:
+        d = data / split
+        (d / "wav").mkdir(parents=True, exist_ok=True)
+        with open(d / "wav.scp", "w") as fw, open(d / "label", "w") as fl:
+            for i in range(n):
+                wave, text, _ = corpus.utterance(f"cls-{split}", i)
+                uid = f"{split}_{i:05d}"
+                write_wav(d / "wav" / f"{uid}.wav", 16000, wave)
+                fw.write(f"{uid} {d / 'wav' / f'{uid}.wav'}\n")
+                fl.write(f"{uid} {word2id[text]}\n")
+    test = data / "test"
+    wavs = dict(line.split() for line in open(test / "wav.scp"))
+    labels = dict(line.split() for line in open(test / "label"))
+    keys = sorted(wavs)
+    audio = [read_wav(wavs[k])[1] for k in keys]
+    L = bucket_length(max(len(a) for a in audio), base=4096, growth=1.3)
+    speech = np.zeros((len(keys), L), np.float32)
+    lens = np.zeros((len(keys),), np.int64)
+    for j, a in enumerate(audio):
+        speech[j, :len(a)] = a
+        lens[j] = len(a)
+    return keys, speech, lens, np.asarray([int(labels[k]) for k in keys])
 
 
 def time_ms(torch, fn, iters: int = 20) -> float:
@@ -2775,13 +2904,16 @@ def k2_at(torch, wave, *, fs: int, n_fft: int, hop_length: int,
     return row
 
 
-def a5_config(task, asset: Path, workdir: Path, name: str, **extra):
+def a5_config(task, asset: Path, workdir: Path, name: str,
+              weights: Path = None, **extra):
     """The asset's config with this run's data and output dir, 10 steps
-    of one epoch from the asset's weights, written to workdir/name.yaml."""
+    of one epoch from the asset's weights (or ``weights``), written to
+    workdir/name.yaml."""
     from espnet_tpu_torch.utils.config import dump_yaml, resolve_config
     cfg = resolve_config(task.default_config(), asset / "config.yaml", {
         "output_dir": str(workdir / name), "train_shape_file": [],
-        "valid_shape_file": [], "init_param": str(asset / "params_f16.npz"),
+        "valid_shape_file": [],
+        "init_param": str(weights or asset / "params_f16.npz"),
         "max_epoch": 1, "num_iters_per_epoch": A5_STEPS, "log_interval": 1,
         **extra})
     dump_yaml(cfg, workdir / f"{name}.yaml")
@@ -2790,9 +2922,10 @@ def a5_config(task, asset: Path, workdir: Path, name: str, **extra):
 
 def a5_train(torch, _cuda, entry_main, task, model_cls, cfg, cfg_path,
              asset, want: dict, loss_keys, valid_if) -> dict:
-    """An entry point's 10 steps with train_path's records: the
-    validation before (the asset) and after, a reload of the checkpoint
-    to the same validation loss, the launches of one valid batch."""
+    """An entry point's steps (10 of one epoch, or as ``cfg`` says) with
+    train_path's records: the validation before (the asset) and after
+    each epoch, a reload of the checkpoint to the same validation loss,
+    the launches of one valid batch."""
     from espnet_tpu_torch import convert
     from espnet_tpu_torch.train.checkpoint import load_checkpoint
     from espnet_tpu_torch.train.trainer import evaluate, to_device
@@ -2801,7 +2934,8 @@ def a5_train(torch, _cuda, entry_main, task, model_cls, cfg, cfg_path,
     trainer, per_step, launches, wall, peak = train_run(
         torch, _cuda, entry_main, cfg_path, model_cls)
     steps = trainer.step_stats
-    after = trainer.reporter.stats[1]["valid"]
+    epochs = cfg["max_epoch"]
+    after = trainer.reporter.stats[epochs]["valid"]
     flat, _, meta = load_checkpoint(Path(cfg["output_dir"]) / "checkpoint")
     fresh = convert.load_flax_params(task.build_model(cfg), flat).to("cuda")
     reloaded = evaluate(fresh, valid_if, "cuda")
@@ -2815,7 +2949,8 @@ def a5_train(torch, _cuda, entry_main, task, model_cls, cfg, cfg_path,
     valid_launches = dict(_cuda.LAUNCHES)
     step_ms = [1e3 * s["train_time"] for s in steps]
     full = {n: want.get(n, 0) for n in _cuda.LAUNCHES}
-    check_steps(steps, per_step, full, loss_keys, n_steps=A5_STEPS)
+    check_steps(steps, per_step, full, loss_keys,
+                n_steps=epochs * cfg["num_iters_per_epoch"])
     if valid_launches != full:
         raise AssertionError(f"launches per valid batch {valid_launches}, "
                              f"not {full}")
@@ -2829,6 +2964,8 @@ def a5_train(torch, _cuda, entry_main, task, model_cls, cfg, cfg_path,
             "step_ms_median_3_10": statistics.median(step_ms[2:]),
             "peak_memory_bytes": peak, "wall_seconds": wall,
             "valid_before": before, "valid_after": after,
+            "valid_per_epoch": {e: trainer.reporter.stats[e]["valid"]
+                                for e in range(1, epochs + 1)},
             "valid_reloaded": reloaded, "checkpoint_epoch": meta["epoch"],
             "step_launches": full, "valid_batch_launches": valid_launches}
 
@@ -3254,6 +3391,333 @@ def a5_phases(torch, _cuda, workdir: Path, smi: str):
           "determinism": determinism(
               SpeechLMTask, lambda n, **kw: slm_cfg(
                   n, valid_multi_task_dataset=None, **kw), "speechlm")})
+    return paths
+
+
+def decisions_flipped(scores, ref_scores, threshold: float):
+    """Trials that the scores decide otherwise than ``ref_scores`` at
+    ``threshold`` -> [(trial, |ref score - threshold|)]."""
+    import numpy as np
+    flip = np.flatnonzero((scores > threshold) != (ref_scores > threshold))
+    return [(int(i), float(abs(ref_scores[i] - threshold))) for i in flip]
+
+
+def spk_cls_phases(torch, _cuda, workdir: Path, smi: str, cls_test):
+    """Phases 33-35: speaker verification and its training, then
+    classification with the LID and ASVspoof entry points. ``cls_test``:
+    phase 4's cls1 test batch (keys, speech, lengths, labels), its data
+    dirs under workdir/cls/data. -> the launches of each path per decode
+    batch, train step and valid batch."""
+    import numpy as np
+
+    from espnet_tpu_torch import convert
+    from espnet_tpu_torch.bin import (asvspoof_inference, asvspoof_train,
+                                      cls_train, lid_inference, lid_train,
+                                      spk_embed_extract, spk_inference,
+                                      spk_train)
+    from espnet_tpu_torch.bin.cls_inference import ClassifySpeech
+    from espnet_tpu_torch.bin.spk_inference import (SpeakerEmbedding,
+                                                    embed_utterances,
+                                                    write_trials)
+    from espnet_tpu_torch.data.fileio import SoundScpReader
+    from espnet_tpu_torch.data.synth_speech import SynthSpeechCorpus
+    from espnet_tpu_torch.models.cls import ClassificationModel
+    from espnet_tpu_torch.models.spk import SpeakerModel
+    from espnet_tpu_torch.tasks.misc import ASVSpoofTask
+    from espnet_tpu_torch.tasks.spk import (ClassificationTask, LIDTask,
+                                            SpeakerTask, read_trials,
+                                            trial_scores)
+    from espnet_tpu_torch.train.checkpoint import load_checkpoint
+    from espnet_tpu_torch.utils.config import dump_yaml, resolve_config
+    from espnet_tpu_torch.utils.eer import (compute_eer, compute_min_dcf,
+                                            operating_points)
+
+    ref = json.loads(SPK_REFERENCE.read_text(encoding="utf-8"))
+    paths = {"decode": {}, "train_step": {}, "valid_batch": {}}
+
+    # 33. spk_verify: the recipe's held-out trials, as its stage 3
+    sdir = workdir / "spk"
+    data = sdir / "data"
+    t0 = time.perf_counter()
+    SynthSpeechCorpus().materialize(data, n_train=SPK_N_TRAIN,
+                                    n_valid=SPK_N_VALID, n_test=SPK_N_TEST)
+    for split in ("train", "valid", "test"):
+        with open(data / split / "utt2spkid", "w") as f:
+            for line in open(data / split / "utt2spk"):
+                u, spk_name = line.split()
+                f.write(f"{u} {int(spk_name[3:])}\n")
+    write_trials(data, "valid", SPK_VALID_TRIALS)
+    test_trials = write_trials(data, "test", SPK_TRIALS)
+    data_s = time.perf_counter() - t0
+    sref = ref["spk"]
+    if test_trials.read_text(encoding="utf-8") != sref["trials"]:
+        raise AssertionError("the test trials differ from the JAX "
+                             "reference's")
+    trials = read_trials(test_trials)
+    reader = SoundScpReader(data / "test" / "wav.scp")
+    utt_ids = sorted({u for _, e, t in trials for u in (e, t)})
+    waves = [reader[u][1] for u in utt_ids]
+    energy_rel = max(abs(float(np.sum(np.square(w, dtype=np.float64))) / e
+                         - 1) for w, e in zip(waves, sref["waves_energy"]))
+    if not energy_rel <= 1e-6:
+        raise AssertionError(f"the test utterances differ from the JAX "
+                             f"reference's (energy {energy_rel})")
+    se = SpeakerEmbedding(SPK / "config.yaml", SPK)
+    embed_utterances(se, waves[:SPK_BATCH], SPK_LEN, SPK_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    embs = embed_utterances(se, waves, SPK_LEN, SPK_BATCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    scores, labels = trial_scores(dict(zip(utt_ids, embs)), trials)
+    jscores = unpack(sref["scores"])
+    eer, thr = compute_eer(scores, labels)
+    mdcf = compute_min_dcf(scores, labels)
+    n_target = int(labels.sum())
+    n_non = len(labels) - n_target
+    eer_thr, dcf_thr = operating_points(jscores, labels)
+    flips = decisions_flipped(scores, jscores, eer_thr)
+    dcf_flips = decisions_flipped(scores, jscores, dcf_thr)
+    # the embedding CLIs on the first 8 test utterances, each alone
+    keys8 = sorted(reader.keys())[:N_SPK_CLI]
+    cli_scp = sdir / "cli_wav.scp"
+    cli_scp.write_text("".join(f"{k} {reader.data[k]}\n" for k in keys8),
+                       encoding="utf-8")
+    model_args = ["--train_config", str(SPK / "config.yaml"),
+                  "--model_file", str(SPK)]
+    spk_embed_extract.main(["--output_dir", str(sdir / "extract"),
+                            "--wav_scp", str(cli_scp), *model_args])
+    spk_inference.main(["--output_dir", str(sdir / "embed_cli"),
+                        "--data_path_and_name_and_type",
+                        f"{cli_scp},speech,sound", *model_args])
+    spk_launches = dict(_cuda.LAUNCHES)
+    own = np.stack([se(reader[k][1])[0] for k in keys8])
+    extracted = np.stack([np.load(sdir / "extract" / f"{k}.npy")[0]
+                          for k in keys8])
+    written = np.stack([np.load(sdir / "embed_cli" / "embed" / f"{k}.npy")
+                        for k in keys8])
+    jcli = unpack(sref["cli_embeddings"])
+    cli_rel = float(np.abs(own - jcli).max() / np.abs(jcli).max())
+    audio_s = sum(min(len(w), SPK_LEN) for w in waves) / 16000
+    one_trial_dcf = max(0.05 / n_target, 0.95 / n_non) / 0.05
+    emit({"phase": "spk_verify", "n_trials": len(trials),
+          "n_utts": len(utt_ids), "batch": SPK_BATCH, "length": SPK_LEN,
+          "eer": eer, "eer_jax": sref["eer"], "threshold": thr,
+          "threshold_jax": sref["threshold"], "min_dcf": mdcf,
+          "min_dcf_jax": sref["min_dcf"],
+          "results_json": sref["results_json"],
+          "max_score_diff_from_jax_cpu": float(np.abs(scores
+                                                      - jscores).max()),
+          "score_tol": SCORE_TOL, "eer_operating_point_jax": eer_thr,
+          "eer_flips": flips, "min_dcf_operating_point_jax": dcf_thr,
+          "min_dcf_flips": dcf_flips,
+          "waves_energy_rel": energy_rel, "data_seconds": data_s,
+          "embed_seconds": wall, "audio_s_per_s": audio_s / wall,
+          "peak_memory_bytes": peak,
+          "cli_equal_to_api": bool(np.array_equal(extracted, own)
+                                   and np.array_equal(written, own)),
+          "cli_max_rel_from_jax": cli_rel, "launches": spk_launches,
+          "nvidia_smi": smi})
+    if any(spk_launches.values()):
+        raise AssertionError(f"a kernel ran in the speaker phase: "
+                             f"{spk_launches}")
+    if not float(np.abs(scores - jscores).max()) <= SCORE_TOL:
+        raise AssertionError("a trial's score is not within 1e-4 of the "
+                             "JAX package's")
+    for name, fl, ours, theirs, step in (
+            ("EER", flips, eer, sref["eer"], 1 / n_target),
+            ("minDCF", dcf_flips, mdcf, sref["min_dcf"], one_trial_dcf)):
+        if len(fl) > 1 or any(gap > SCORE_TOL for _, gap in fl):
+            raise AssertionError(f"{name}: trials decided otherwise than "
+                                 f"the JAX package's: {fl}")
+        if not abs(ours - theirs) <= len(fl) * step + 1e-12:
+            raise AssertionError(f"{name} {ours} against JAX's {theirs}")
+    if not (np.array_equal(extracted, own) and np.array_equal(written, own)):
+        raise AssertionError("the embedding CLIs wrote other embeddings "
+                             "than SpeakerEmbedding's")
+    if not cli_rel <= SCORE_TOL:
+        raise AssertionError(f"embeddings {cli_rel} from the JAX "
+                             f"package's")
+    paths["decode"]["spk"] = {n: v * SPK_BATCH / len(utt_ids)
+                              for n, v in spk_launches.items()}
+
+    # 34. spk_train: the asset's config from its weights, the margin
+    # warm-up on and the trial EER in each valid epoch
+    def spk_cfg(name, **extra):
+        return a5_config(SpeakerTask, SPK, sdir, name, **{
+            "train_data_path_and_name_and_type": [
+                f"{data}/train/wav.scp,speech,sound",
+                f"{data}/train/utt2spkid,spk_labels,text_int"],
+            "valid_data_path_and_name_and_type": [
+                f"{data}/valid/wav.scp,speech,sound",
+                f"{data}/valid/utt2spkid,spk_labels,text_int"],
+            "valid_trial": str(data / "valid" / "trials"),
+            "valid_trial_scp": str(data / "valid" / "wav.scp"),
+            "max_epoch": SPK_EPOCHS,
+            "num_iters_per_epoch": SPK_STEPS_PER_EPOCH, **extra})
+
+    scfg, scfg_path = spk_cfg("train")
+    svalid_if = SpeakerTask.build_iter_factory(scfg, train=False)
+    asset_model, _ = SpeakerTask.build_model_from_file(scfg_path, SPK)
+    trials_before = SpeakerTask.build_extra_valid_fn(scfg)(
+        asset_model, 0)
+    del asset_model
+    rec = a5_train(torch, _cuda, spk_train.main, SpeakerTask, SpeakerModel,
+                   scfg, scfg_path, SPK, {}, ("loss", "acc", "margin"),
+                   svalid_if)
+    margins = [s["margin"] for s in rec["steps"]]
+    want_margins = ([0.0] * SPK_STEPS_PER_EPOCH
+                    + [float(np.float32(0.3 / 5))] * SPK_STEPS_PER_EPOCH)
+    paths["train_step"]["spk"] = rec["step_launches"]
+    paths["valid_batch"]["spk"] = rec["valid_batch_launches"]
+    _, gb = svalid_if.collate_fn([svalid_if.dataset[k] for k in
+                                  svalid_if.dataset.keys()[:GRAD_BATCH]])
+    emit({"phase": "spk_train", "n_train": SPK_N_TRAIN,
+          "n_valid": SPK_N_VALID, "n_valid_trials": SPK_VALID_TRIALS,
+          "trials_before": trials_before, **rec,
+          "grad_check": grad_check(torch, SpeakerTask, scfg_path, SPK, gb),
+          "determinism": determinism(SpeakerTask, spk_cfg, "spk")})
+    if margins != want_margins:
+        raise AssertionError(f"margins {margins}, not {want_margins}")
+    for e, valid in rec["valid_per_epoch"].items():
+        if not ("eer" in valid and "min_dcf" in valid):
+            raise AssertionError(f"no trial EER in valid epoch {e}")
+
+    # 35. cls: the cls1 recipe's model from the seed's weights, its test
+    # batch on the card and the CPU, training, LID and ASVspoof
+    cdir = workdir / "cls"
+    cdata = cdir / "data"
+    keys, speech, lens, cls_labels = cls_test
+    cref = ref["cls"]
+    energy_rel = max(abs(float(np.sum(np.square(w, dtype=np.float64))) / e
+                         - 1) for w, e in zip(speech, cref["waves_energy"]))
+    if not (list(speech.shape) == cref["shape"] and energy_rel <= 1e-6):
+        raise AssertionError(f"the cls test batch differs from the JAX "
+                             f"reference's (energy {energy_rel})")
+    ccfg0 = resolve_config(ClassificationTask.default_config(),
+                           overrides=cls_config_dict(cdata))
+    dump_yaml(ccfg0, cdir / "config.yaml")
+    weights = cdir / "seed.npz"
+    np.savez(weights, **seed_flat(
+        {k: v.shape for k, v in convert.state_dict_to_flax(
+            ClassificationTask.build_model(ccfg0)).items()}, CLS_SEED))
+    cs = ClassifySpeech(cdir / "config.yaml", weights)
+    cs.logits(speech, lens)
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = cs.logits(speech, lens)
+    torch.cuda.synchronize()
+    cls_wall = time.perf_counter() - t0
+    decode_launches = dict(_cuda.LAUNCHES)
+    logits_cpu = ClassifySpeech(cdir / "config.yaml", weights,
+                                device="cpu").logits(speech, lens)
+    jlogits = unpack(cref["logits"])
+    err_cpu = rel_err(torch.from_numpy(logits), torch.from_numpy(logits_cpu))
+    err_jax = rel_err(torch.from_numpy(logits), torch.from_numpy(jlogits))
+    preds = logits.argmax(-1)
+    emit({"phase": "cls", "n_utts": len(keys), "shape": list(speech.shape),
+          "logits_max_rel_from_cpu": err_cpu,
+          "logits_max_rel_from_jax_cpu": err_jax, "tol": CLS_LOGIT_TOL,
+          "predictions_differ_from_cpu": int((preds != logits_cpu.argmax(
+              -1)).sum()),
+          "predictions_differ_from_jax": int((preds != np.asarray(
+              cref["predictions"])).sum()),
+          "accuracy_seed_weights": float((preds == cls_labels).mean()),
+          "decode_seconds": cls_wall,
+          "audio_s_per_s": float(lens.sum()) / 16000 / cls_wall,
+          "launches": decode_launches})
+    if decode_launches != {n: int(n == "logmel_fwd")
+                           for n in decode_launches}:
+        raise AssertionError(f"cls decode launches {decode_launches}")
+    if not (err_cpu <= CLS_LOGIT_TOL and err_jax <= CLS_LOGIT_TOL):
+        raise AssertionError(f"cls logits {err_cpu} from the CPU's, "
+                             f"{err_jax} from JAX's")
+    if (preds != logits_cpu.argmax(-1)).any():
+        raise AssertionError("cls predictions differ from the CPU's")
+    paths["decode"]["cls"] = decode_launches
+
+    def cls_cfg(name, task=ClassificationTask, **extra):
+        return a5_config(task, cdir, cdir, name, weights=weights,
+                         **{"num_iters_per_epoch": CLS_STEPS, **extra})
+
+    ccfg, ccfg_path = cls_cfg("train")
+    cvalid_if = ClassificationTask.build_iter_factory(ccfg, train=False)
+    rec = a5_train(torch, _cuda, cls_train.main, ClassificationTask,
+                   ClassificationModel, ccfg, ccfg_path, weights,
+                   {"logmel_fwd": 1}, ("loss", "acc"), cvalid_if)
+    paths["train_step"]["cls"] = rec["step_launches"]
+    paths["valid_batch"]["cls"] = rec["valid_batch_launches"]
+    _, again_path = cls_cfg("train_again")
+    cls_train.main(["--config", str(again_path)])
+    first = load_checkpoint(Path(ccfg["output_dir"]) / "checkpoint")[0]
+    again = load_checkpoint(cdir / "train_again" / "checkpoint")[0]
+    differ = sorted(k for k in first if not np.array_equal(first[k],
+                                                           again[k]))
+    _, gb = cvalid_if.collate_fn([cvalid_if.dataset[k] for k in
+                                  cvalid_if.dataset.keys()[:GRAD_BATCH]])
+    # LID and ASVspoof through their own entry points: 3 steps each over
+    # the recipe's train dir (ASVspoof: the keyword's parity as its two
+    # classes), then each inference CLI over 8 test utterances
+    (cdata / "train" / "label2").write_text("".join(
+        f"{k} {int(v) % 2}\n" for k, v in (
+            line.split() for line in open(cdata / "train" / "label"))),
+        encoding="utf-8")
+    test_scp = cdir / "test8.scp"
+    test_scp.write_text("".join(open(cdata / "test" / "wav.scp").readlines()
+                                [:8]), encoding="utf-8")
+    short = {}
+    for name, task, train_mod, infer_mod, label, n_cls in (
+            ("lid", LIDTask, lid_train, lid_inference, "label",
+             CLS_N_KEYWORDS),
+            ("asvspoof", ASVSpoofTask, asvspoof_train, asvspoof_inference,
+             "label2", 2)):
+        tcfg, tpath = cls_cfg(name, task=task, n_classes=n_cls,
+                              num_iters_per_epoch=SHORT_STEPS,
+                              init_param=None,
+                              valid_data_path_and_name_and_type=[],
+                              train_data_path_and_name_and_type=[
+                                  f"{cdata}/train/wav.scp,speech,sound",
+                                  f"{cdata}/train/{label},label,text_int"])
+        _cuda.reset_launch_counts()
+        _, trainer = train_mod.main(["--config", str(tpath)])
+        train_launches = dict(_cuda.LAUNCHES)
+        _cuda.reset_launch_counts()
+        infer_mod.main(["--output_dir", str(cdir / f"{name}_out"),
+                        "--data_path_and_name_and_type",
+                        f"{test_scp},speech,sound",
+                        "--train_config", str(tpath), "--model_file",
+                        str(Path(tcfg["output_dir"]) / "checkpoint")])
+        infer_launches = dict(_cuda.LAUNCHES)
+        predicted = [int(line.split()[1]) for line in open(
+            cdir / f"{name}_out" / "prediction")]
+        short[name] = {"n_classes": n_cls, "steps": [
+            {k: s[k] for k in ("loss", "acc", "grad_norm", "skipped")}
+            for s in trainer.step_stats], "train_launches": train_launches,
+            "predictions": predicted, "inference_launches": infer_launches}
+        if not (len(trainer.step_stats) == SHORT_STEPS and all(
+                math.isfinite(s["loss"]) and not s["skipped"]
+                for s in trainer.step_stats)):
+            raise AssertionError(f"{name}: {trainer.step_stats}")
+        if not (len(predicted) == 8 and all(0 <= c < n_cls
+                                            for c in predicted)):
+            raise AssertionError(f"{name} predictions {predicted}")
+        if (train_launches["logmel_fwd"] != SHORT_STEPS
+                or infer_launches["logmel_fwd"] != 8):
+            raise AssertionError(f"{name} launches {train_launches}, "
+                                 f"{infer_launches}")
+    emit({"phase": "cls_train", **rec, "rerun_n_differ": len(differ),
+          "rerun_differs": differ[:5],
+          "grad_check": grad_check(torch, ClassificationTask, ccfg_path,
+                                   weights, gb),
+          "determinism": determinism(ClassificationTask, cls_cfg, "cls"),
+          **short})
+    if differ:
+        raise AssertionError(f"a second 10-step cls run differs in "
+                             f"{len(differ)} parameters, e.g. {differ[:3]}")
     return paths
 
 
@@ -3736,7 +4200,7 @@ def run(torch, workdir: Path):
     # and behind the attention backward and SDPA's at the train shape
     profiled |= device_times(torch, {"flash_attn_bwd": k1b} | (
         {"sdpa_bwd": k1b_library} if k1b_library_ms is not None else {}))
-    # K2 at the shapes of phases 29 and 31 (checked and profiled here,
+    # K2 at the shapes of phases 29, 31 and 35 (checked and profiled here,
     # where the profiler sees the kernel: late in a run it listed none of
     # its launches): the diarization decode's first batch, 8 seeded test
     # dialogs, and the codec mel loss's (8, 74560), 8 held-out utterances
@@ -3753,6 +4217,18 @@ def run(torch, workdir: Path):
         "at_codec_mel_loss_shape": k2_at(
             torch, speech[:CODEC_BATCH, :(74656 // 320) * 320], fs=16000,
             n_fft=256, hop_length=64, n_mels=40)}
+    # and at the cls1 recipe's test batch (phase 35): its 200 keywords
+    # written as WAVs and read back, in one batch at the bucket of the
+    # longest, the recipe's frontend
+    from espnet_tpu_torch.data.batching import bucket_length
+    from espnet_tpu_torch.data.fileio import read_wav, write_wav
+    cls_test = cls_data(SynthSpeechCorpus(n_words=CLS_N_KEYWORDS,
+                                          min_words=1, max_words=1),
+                        write_wav, read_wav, bucket_length,
+                        workdir / "cls" / "data")
+    a5_k2["at_cls_shape"] = k2_at(
+        torch, torch.from_numpy(cls_test[1]).cuda(), fs=16000, n_fft=512,
+        hop_length=128, n_mels=80)
 
     checks = [
         {"name": "flash_attn_fwd", "shape": [B, H, T, d], "tol": K1_TOL,
@@ -3940,7 +4416,8 @@ def run(torch, workdir: Path):
     trainer, per_step, train_launches, train_wall, peak_bytes = train_run(
         torch, _cuda, asr_train.main, cfg_path, ASRModel)
     steps = trainer.step_stats
-    after = trainer.reporter.stats[1]["valid"]
+    epochs = cfg["max_epoch"]
+    after = trainer.reporter.stats[epochs]["valid"]
     flat, _, meta = load_checkpoint(Path(cfg["output_dir"]) / "checkpoint")
     fresh = convert.load_flax_params(build_model(cfg), flat).to("cuda")
     reloaded = evaluate(fresh, valid_if, "cuda")
@@ -4238,6 +4715,9 @@ def run(torch, workdir: Path):
     # 29-32. diarization, the codec and the SpeechLM
     a5_paths = a5_phases(torch, _cuda, workdir, smi)
 
+    # 33-35. speaker verification, classification, LID and ASVspoof
+    spk_cls_paths = spk_cls_phases(torch, _cuda, workdir, smi, cls_test)
+
     print(smi, flush=True)
     # launches of each kernel per decode and per train step on the paths
     # that run it; "launches" is the count on its main path's run: the
@@ -4256,7 +4736,7 @@ def run(torch, workdir: Path):
                             "enh_s2t": s2t_step_launches,
                             "vits": vits_step, "gan_vocoder": voc_step},
              "valid_batch": {"vits": vits_valid}}
-    for kind_, per_model in a5_paths.items():
+    for kind_, per_model in (*a5_paths.items(), *spk_cls_paths.items()):
         paths[kind_].update(per_model)
     next(k for k in kernels if k["name"] == "logmel_fwd").update(a5_k2)
     main_runs = {"flash_attn_fwd": decode_launches,
@@ -4276,7 +4756,7 @@ def run(torch, workdir: Path):
             "bound_ms_fp32_cores", "chain_floor_ms", "at_train_shape",
             "at_long_form_train_batch", "at_mel_loss_shape",
             "at_diar_decode_shape", "at_codec_mel_loss_shape",
-            "device_kernels") if key in kern}
+            "at_cls_shape", "device_kernels") if key in kern}
         | {"launches": main_runs[kern["name"]][kern["name"]]}
         | {f"launches_per_{kind_}": {
             model_: counts[kern["name"]]

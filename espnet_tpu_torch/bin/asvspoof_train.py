@@ -1,0 +1,21 @@
+"""Anti-spoofing training entry point (counterpart of
+espnet_tpu/bin/asvspoof_train.py).
+
+    python -m espnet_tpu_torch.bin.asvspoof_train --config train.yaml \\
+        --output_dir exp/asvspoof [--key value ...] [--device cpu]
+
+Trains on the card unless ``--device cpu`` is given; without a card and
+without that option it raises.
+"""
+
+import sys
+
+from espnet_tpu_torch.tasks.misc import ASVSpoofTask
+
+
+def main(argv=None):
+    return ASVSpoofTask.main(argv=sys.argv[1:] if argv is None else argv)
+
+
+if __name__ == "__main__":
+    main()

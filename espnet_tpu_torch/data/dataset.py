@@ -2,7 +2,8 @@
 (path, name, type) triples -> self[uid] = (uid, {name: value}), through
 the preprocessor (given the epoch, which the iterator sets, where it
 ``takes_epoch``); floats come out float32 and ints int32. The types read
-are ``sound`` (wav.scp), ``text`` and ``npy`` (an scp of .npy arrays:
+are ``sound`` (wav.scp), ``text``, ``text_int`` (integer sequences:
+speaker ids, class labels) and ``npy`` (an scp of .npy arrays:
 diarization labels, codec codes); the JAX package's others raise."""
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 
 from espnet_tpu_torch.data.fileio import (NpyScpReader, SoundScpReader,
+                                          load_num_sequence_text,
                                           read_2columns_text)
 
 
@@ -41,6 +43,7 @@ class _DictLoader:
 DATA_TYPES: Dict[str, Callable] = {
     "sound": _SoundLoader,
     "text": lambda p: _DictLoader(read_2columns_text(p)),
+    "text_int": lambda p: _DictLoader(load_num_sequence_text(p, "text_int")),
     "npy": NpyScpReader,
 }
 

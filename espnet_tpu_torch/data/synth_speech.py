@@ -236,9 +236,10 @@ class SynthSpeechCorpus:
     def materialize(self, root, n_train: int = 800, n_valid: int = 50,
                     n_test: int = 50, speaker_ids=None) -> None:
         """Write Kaldi-style data dirs root/{train,valid,test} (wav.scp,
-        text, 16-bit wavs), utterance ids ``{split}_{index:05d}``, as the
-        JAX package's ``materialize`` does; ``speaker_ids`` restricts the
-        voices (the TTS recipes' [0]: one speaker)."""
+        text, utt2spk, 16-bit wavs), utterance ids ``{split}_{index:05d}``,
+        speakers ``spk{id:02d}``, as the JAX package's ``materialize``
+        does; ``speaker_ids`` restricts the voices (the TTS recipes' [0]:
+        one speaker)."""
         from pathlib import Path
 
         from espnet_tpu_torch.data.fileio import write_wav
@@ -246,14 +247,17 @@ class SynthSpeechCorpus:
                          ("test", n_test)):
             d = Path(root) / split
             (d / "wav").mkdir(parents=True, exist_ok=True)
-            with open(d / "wav.scp", "w") as fw, open(d / "text", "w") as ft:
+            with open(d / "wav.scp", "w") as fw, \
+                    open(d / "text", "w") as ft, \
+                    open(d / "utt2spk", "w") as fu:
                 for i in range(n):
-                    wave, text, _ = self.utterance(
+                    wave, text, sid = self.utterance(
                         split, i, speaker_ids=speaker_ids)
                     uid = f"{split}_{i:05d}"
                     write_wav(d / "wav" / f"{uid}.wav", FS, wave)
                     fw.write(f"{uid} {d / 'wav' / f'{uid}.wav'}\n")
                     ft.write(f"{uid} {text}\n")
+                    fu.write(f"{uid} spk{sid:02d}\n")
 
 
 class SynthMixCorpus:

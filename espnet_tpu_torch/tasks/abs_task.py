@@ -166,6 +166,18 @@ class AbsTask:
     def build_preprocess_fn(cls, cfg: Dict[str, Any], train: bool):
         return None
 
+    @classmethod
+    def batch_extras_fn(cls, cfg: Dict[str, Any]):
+        """Optional epoch -> {name: array} merged into every train batch
+        of the epoch (a margin schedule); None: nothing."""
+        return None
+
+    @classmethod
+    def build_extra_valid_fn(cls, cfg: Dict[str, Any]):
+        """Optional fn(model, epoch) -> stats, registered in each valid
+        epoch with weight 1 (the speaker task's trial EER); None: none."""
+        return None
+
     # ---- shared machinery -----------------------------------------
     @classmethod
     def build_model_from_file(cls, config_file, model_file, device=None,
@@ -287,7 +299,9 @@ class AbsTask:
             keep_nbest_models=cfg["keep_nbest_models"],
             best_model_criterion=tuple(cfg["best_model_criterion"][0]),
             seed=cfg["seed"], log_interval=cfg["log_interval"],
-            resume=cfg["resume"], device=device)
+            resume=cfg["resume"], device=device,
+            batch_extras_fn=cls.batch_extras_fn(cfg),
+            extra_valid_fn=cls.build_extra_valid_fn(cfg))
 
     @classmethod
     def build_trainer(cls, cfg, model, out, train_if, valid_if, device):

@@ -27,6 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from espnet_tpu_torch.models.enh.separators import TCNBlock, TCNSeparator
+from espnet_tpu_torch.models.spk import (EcapaEncoder, SERes2NetBlock,
+                                          SkaTdnnEncoder)
 from espnet_tpu_torch.models.tts.fastspeech2 import VariancePredictor
 from espnet_tpu_torch.models.tts.hifigan import LeakyReLU
 from espnet_tpu_torch.models.tts.vits import LOGS_CLIP, VITS, Clip
@@ -47,10 +49,18 @@ def relu_inputs(model) -> dict:
     ReLU feed-forward, and in the TCN separator the 1x1 and depthwise
     convolutions of each block, the last block (its output goes into the
     PReLU before the masks) and the mask convolution of ReLU masks; each
-    convolution of a variance (duration) predictor."""
+    convolution of a variance (duration) predictor; in a speaker
+    encoder (ECAPA, SKA-TDNN) the input normalisation and the output
+    convolution, and in each SE-Res2Net block both normalisations and the
+    squeeze-excitation's first linear."""
     out = {}
     for name, m in model.named_modules():
-        if isinstance(m, VariancePredictor):
+        if isinstance(m, SERes2NetBlock):
+            out.update({f"{name}.{c}": getattr(m, c)
+                        for c in ("norm1", "norm2", "se1")})
+        elif isinstance(m, (EcapaEncoder, SkaTdnnEncoder)):
+            out.update({f"{name}.norm_in": m.norm_in, f"{name}.mfa": m.mfa})
+        elif isinstance(m, VariancePredictor):
             out.update({f"{name}.conv{i}": getattr(m, f"conv{i}")
                         for i in range(m.layers)})
         elif isinstance(m, Conv2dSubsampling):

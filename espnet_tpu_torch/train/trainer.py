@@ -8,7 +8,10 @@ epoch loop trains, validates, writes the ``checkpoint`` directory and
 the ``{n}epoch`` snapshot, keeps the best and n-best epochs by
 ``best_model_criterion``, stops after ``patience`` epochs without
 improvement, averages the n best at the end, and resumes from
-``checkpoint``.
+``checkpoint``. A task may give two hooks: ``batch_extras_fn(epoch)`` ->
+{name: array} merged into every train batch of the epoch (the speaker
+task's margin warm-up), and ``extra_valid_fn(model, epoch)`` -> stats
+registered in the valid epoch with weight 1 (its trial EER).
 
 Each epoch seeds torch's generators (dropout) and the SpecAug generator
 with seed + epoch, as the reference does, so a resumed run draws what an
@@ -107,7 +110,9 @@ class Trainer:
                  seed: int = 0,
                  log_interval: int = 50,
                  resume: bool = False,
-                 device="cuda"):
+                 device="cuda",
+                 batch_extras_fn: Optional[Callable] = None,
+                 extra_valid_fn: Optional[Callable] = None):
         self.model = model
         self.optimizer = optimizer
         self.output_dir = Path(output_dir)
@@ -121,6 +126,8 @@ class Trainer:
         self.seed = seed
         self.log_interval = log_interval
         self.device = torch.device(device)
+        self.batch_extras_fn = batch_extras_fn
+        self.extra_valid_fn = extra_valid_fn
         self.reporter = Reporter()
         self.start_epoch = 1
         self._global_step = 0
@@ -148,9 +155,13 @@ class Trainer:
         generator = torch.Generator(self.device).manual_seed(
             self.seed + epoch)
         n_steps = n_skipped = 0
+        extras = (self.batch_extras_fn(epoch)
+                  if self.batch_extras_fn is not None else None)
         t_iter = time.perf_counter()
         for _, batch in self.train_iter_factory.build_iter(epoch):
             iter_time = time.perf_counter() - t_iter
+            if extras:
+                batch = {**batch, **extras}
             t0 = time.perf_counter()
             stats, weight = self._train_step(to_device(batch, self.device),
                                              generator)
@@ -177,6 +188,10 @@ class Trainer:
         for _, batch in self.valid_iter_factory.build_iter(epoch,
                                                            shuffle=False):
             sub.register(*self._eval_step(to_device(batch, self.device)))
+        if self.extra_valid_fn is not None:
+            extra = self.extra_valid_fn(self.model, epoch)
+            if extra:
+                sub.register(extra, 1.0)
         self.reporter.finish_epoch(sub)
 
     def run(self):

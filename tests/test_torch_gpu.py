@@ -20,6 +20,10 @@ steps as their plain versions: nll, alpha and beta equal theirs to the
 bit, and the closed-form gradient is within 1e-5 of its largest entry.
 The GAN mel loss through the log-mel kernel is within 1e-4 of the plain
 version's, and VITS and vocoder training repeat themselves bit for bit.
+The ECAPA speaker embedding on the card is within 1e-4 of the CPU's, the
+keyword classifier through the log-mel kernel within 1e-4 of its plain
+frontend, and speaker and classification training repeat themselves bit
+for bit.
 """
 
 from pathlib import Path
@@ -1137,6 +1141,117 @@ def test_a5_training_on_the_card_repeats_itself_bit_for_bit(tmp_path, task):
                    text_token_list=str(tmp_path / "tokens.txt"),
                    codebook_size=16, n_streams=2)
         main, kernel_launches = speechlm_train.main, 0
+    finals = []
+    for run in ("a", "b"):
+        dump_yaml(dict(cfg, output_dir=str(tmp_path / run)),
+                  tmp_path / f"{run}.yaml")
+        _cuda.reset_launch_counts()
+        _, trainer = main(["--config", str(tmp_path / f"{run}.yaml")])
+        assert [s["skipped"] for s in trainer.step_stats] == [0.0] * 2
+        assert _cuda.LAUNCHES["logmel_fwd"] == kernel_launches
+        finals.append(load_checkpoint(tmp_path / run / "checkpoint")[0])
+    for name in finals[0]:
+        np.testing.assert_array_equal(finals[1][name], finals[0][name],
+                                      err_msg=name)
+
+
+@pytest.mark.gpu
+def test_speaker_embedding_on_the_card_matches_the_cpu():
+    # the ECAPA asset on 4 held-out utterances as the recipe's stage 3
+    # pads them: embeddings within 1e-4 of their largest, no kernel
+    # launched (hop 160 does not divide n_fft 512: the plain STFT)
+    _cuda_or_skip()
+    from espnet_tpu_torch.bin.spk_inference import SpeakerEmbedding
+    from espnet_tpu_torch.data.synth_speech import SynthSpeechCorpus
+    spk = ROOT / "assets" / "synth_spk_ecapa"
+    corpus = SynthSpeechCorpus()
+    speech = np.zeros((4, 74656), np.float32)
+    lens = np.zeros((4,), np.int64)
+    for j in range(4):
+        w = corpus.utterance("test", j)[0][:74656]
+        speech[j, :len(w)], lens[j] = w, len(w)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        se = SpeakerEmbedding(spk / "config.yaml", spk, device=dev)
+        _cuda.reset_launch_counts()
+        out[dev] = torch.from_numpy(se.embed(speech, lens))
+        assert not any(_cuda.LAUNCHES.values())
+    assert _relative_err(out["cuda"], out["cpu"]) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_classification_model_through_k2_matches_its_plain_frontend():
+    # the cls1 recipe's model (4-block Transformer, d=144) on 8 keywords:
+    # its logits through K2 (launched once) within 1e-4 of the same
+    # model's through the plain STFT and mel ops
+    _cuda_or_skip()
+    from espnet_tpu_torch.data.synth_speech import SynthSpeechCorpus
+    from espnet_tpu_torch.nn.initialize import init_like_flax
+    from espnet_tpu_torch.tasks.spk import ClassificationTask
+    cfg = {"n_classes": 30,
+           "frontend_conf": {"n_fft": 512, "hop_length": 128, "n_mels": 80},
+           "encoder_conf": {"output_size": 144, "attention_heads": 4,
+                            "linear_units": 576, "num_blocks": 4,
+                            "input_layer": "conv2d"}}
+    corpus = SynthSpeechCorpus(n_words=30, min_words=1, max_words=1)
+    waves = [corpus.utterance("cls-test", i)[0] for i in range(8)]
+    speech = torch.zeros(8, 15216)
+    lens = torch.tensor([len(w) for w in waves])
+    for j, w in enumerate(waves):
+        speech[j, :len(w)] = torch.from_numpy(w)
+    logits = {}
+    for fused in ("auto", "never"):
+        c = dict(cfg, frontend_conf=dict(cfg["frontend_conf"],
+                                         use_fused_kernel=fused))
+        m = init_like_flax(ClassificationTask.build_model(c),
+                           torch.Generator().manual_seed(0)).cuda().eval()
+        _cuda.reset_launch_counts()
+        with torch.no_grad():
+            logits[fused] = m.predict(speech.cuda(), lens.cuda()).cpu()
+        assert _cuda.LAUNCHES["logmel_fwd"] == int(fused == "auto")
+    assert _relative_err(logits["auto"], logits["never"]) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("task", ["spk", "cls"])
+def test_spk_and_cls_training_on_the_card_repeats_itself_bit_for_bit(
+        tmp_path, task):
+    # two 2-step runs of each entry point from one seed end with the same
+    # parameters: the speaker model with the margin warm-up, the
+    # classifier (dropout on) through K2
+    _cuda_or_skip()
+    from espnet_tpu_torch.bin import cls_train, spk_train
+    from espnet_tpu_torch.data.synth_speech import SynthSpeechCorpus
+    from espnet_tpu_torch.train.checkpoint import load_checkpoint
+    from espnet_tpu_torch.utils.config import dump_yaml
+    data = tmp_path / "data"
+    SynthSpeechCorpus().materialize(data, n_train=4, n_valid=0, n_test=0)
+    labels = data / "train" / "labels"
+    labels.write_text("".join(
+        f"{u} {int(s[3:]) % 4}\n" for u, s in (
+            line.split() for line in open(data / "train" / "utt2spk"))))
+    base = {"max_epoch": 2, "num_iters_per_epoch": 1, "batch_size": 2,
+            "batch_type": "unsorted", "log_interval": 1,
+            "valid_data_path_and_name_and_type": []}
+    if task == "spk":
+        cfg = dict(base, n_spk=4, encoder_conf={"channels": 64,
+                                                "num_blocks": 3},
+                   embed_dim=32, margin_warmup_epochs=2,
+                   model_conf={"aam_margin": 0.3, "aam_scale": 30.0},
+                   collate_fixed_lengths={"speech": 74656},
+                   train_data_path_and_name_and_type=[
+                       f"{data}/train/wav.scp,speech,sound",
+                       f"{labels},spk_labels,text_int"])
+        main, kernel_launches = spk_train.main, 0
+    else:
+        cfg = dict(base, n_classes=4,
+                   encoder_conf={"output_size": 64, "attention_heads": 2,
+                                 "linear_units": 128, "num_blocks": 2,
+                                 "input_layer": "conv2d"},
+                   train_data_path_and_name_and_type=[
+                       f"{data}/train/wav.scp,speech,sound",
+                       f"{labels},label,text_int"])
+        main, kernel_launches = cls_train.main, 2
     finals = []
     for run in ("a", "b"):
         dump_yaml(dict(cfg, output_dir=str(tmp_path / run)),
