@@ -43,7 +43,12 @@ Phases, each printing one JSON line:
    and their library calls at the decode shapes (the sweeps at the train
    batch's), and behind both attention backwards and SDPA's autograd
    backward at their train shapes (the wrappers' host time, ~25-35 us a
-   call, is in the CUDA-event times);
+   call, is in the CUDA-event times); and the attention forward and
+   backward at the Conformer separator's shapes, head size 32 (the first
+   block's q, k, v and rel-pos bias of phase 36's decode batch, (10, 4,
+   501, 32), and of an 8-mixture train batch, (8, 4, 501, 32); each
+   against its plain version, launched twice for the same bits, timed
+   and profiled beside SDPA);
 5. main_path: the flagship hybrid CTC/attention Conformer
    (assets/synth_asr_flagship) built by Speech2Text on the card decodes the
    first 64 held-out SynthSpeechCorpus utterances in fp32 (beam 10, CTC
@@ -257,6 +262,37 @@ Phases, each printing one JSON line:
     bit-identical, grad_check, determinism; the LID and ASVspoof entry
     points (bin/lid_train.py, bin/asvspoof_train.py: 3 steps; their
     inference CLIs on 8 test utterances).
+36. enh_separators (run after phase 23): the single-channel STFT
+    separators, each at its JAX class's default width in the TCN asset's
+    config (DPRNN, TF-GridNet, BSRNN, DPTNet, SkiM with mem_type hc and
+    id, DC-CRN, Transformer, Conformer, DPCL, DAN, DCCRN, DPCL-E2E) with
+    seed_flat's weights: SeparateSpeech(fs=16000) on the card over the
+    50 test mixtures in batches of 10 after a warm-up batch (separated
+    audio seconds per second, peak memory, launches: K1 2 a batch for
+    the Conformer, none for the others); the first 2 mixtures on the CPU
+    (within 1e-4 of each estimate's largest sample); 32 samples of every
+    estimate against the JAX package's
+    (scripts/jax_enh_separators_reference.json, within 1e-4 of its
+    largest sample); for DPCL and DAN, whose 10 Lloyd steps a near-tie
+    can send another way, the k-means trace of the bins' embedding
+    (every step's labels; the first 10 mixtures also on the CPU): the
+    final labels at least 99.9% equal to the CPU's, each mixture's first
+    step that differs differing only at near-ties of the CPU's distances
+    (within 1e-4 relative; the later steps are downstream of them), the
+    CPU's estimates from the card's labels (DPCL) or attractors (DAN)
+    within 1e-4 of the card's; against JAX the embedding within 1e-4,
+    the first 2 mixtures' labels at least 99.9% equal, and the slices
+    held on the mixtures whose labels under the slice (DPCL) or whose
+    label counts and first mixtures (DAN) are JAX's, at least 10 of them
+    (the others' errors listed);
+    K1 at the decode batch's (10, 4, 501, 32) and K1b at the train
+    batch's (8, 4, 501, 32) are checked in phase 4;
+37-38. enh_separator_train: bin/enh_train.py on phase 21's config with
+    the Conformer (10 steps; K1 2 and K1b 4 launches a step), TF-GridNet
+    (3 steps) and DPCL with loss_type dpcl (10 steps) from seed_flat's
+    weights at batch 8: per-step records, a second run bit-identical,
+    and grad_check for the Conformer and DPCL (TF-GridNet's is left out,
+    see SEP_TRAIN).
 
 Then the nvidia-smi line, one {"kernels": [...]} line (errors, times and
 bounds of phase 4, launches from the paths that run each kernel; a bound
@@ -264,12 +300,14 @@ is the larger of the bytes at 3.35 TB/s and the operations at 67 TFLOP/s,
 the fp32 rate of the CUDA cores, or for the attention kernels at 165
 TFLOP/s, the tensor cores' fp32-accurate 3xTF32 rate, with the bound at
 67 TFLOP/s beside it) and last
-{"ok": true, "device": {...}}. Without a card, or when any phase fails,
-it exits non-zero and prints no result.
+{"ok": true, "device": {...}}. Each phase's line carries elapsed_s, the
+seconds since the script started. Without a card, or when any phase
+fails, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import shutil
@@ -516,6 +554,37 @@ CLS_SEED = 0            # the classifier's weights: seed_flat(..., 0)
 CLS_LOGIT_TOL = 1e-4    # of the largest |logit|
 CLS_STEPS = 10
 SHORT_STEPS = 3         # the LID and ASVspoof entry points
+# the single-channel STFT separators (phases 36-38): each at the JAX
+# class's default width (egs/synth_asr/enh1/run.py --separator NAME with
+# no --separator_conf; SkiM also with mem_type id) in the TCN asset's
+# config, weights seed_flat(..., SEP_SEED); the JAX package's figures on
+# the same mixtures from scripts/jax_enh_separators_reference.py
+SEP_REFERENCE = ROOT / "scripts" / "jax_enh_separators_reference.json"
+SEPARATOR_CASES = (
+    ("dprnn", "dprnn", {}), ("tfgridnet", "tfgridnet", {}),
+    ("bsrnn", "bsrnn", {}), ("dptnet", "dptnet", {}), ("skim", "skim", {}),
+    ("skim_id", "skim", {"mem_type": "id"}), ("dc_crn", "dc_crn", {}),
+    ("transformer", "transformer", {}), ("conformer", "conformer", {}),
+    ("dpcl", "dpcl", {}), ("dan", "dan", {}), ("dccrn", "dccrn", {}),
+    ("dpcl_e2e", "dpcl_e2e", {}))
+CLUSTERING = ("dpcl", "dan")      # k-means labels at inference
+SEP_SEED = 0
+SLICE_AT, SLICE_LEN = 24000, 32   # each estimate's samples held against JAX
+EMBED_FRAMES = (100, 102)         # DPCL / DAN embedding of mixture 0, JSON
+SLICE_FRAMES = (184, 191)         # STFT frames (hop 128) over the slice
+N_LABEL_MIX = 2                   # mixtures whose labels the JSON holds
+SEP_CPU_MIX = 2                   # mixtures separated on the CPU too
+SEP_CPU_CLUSTER_MIX = 10          # DPCL / DAN: their k-means traces
+LABELS_EQUAL_MIN = 0.999
+# card training from seed_flat's weights over phase 21's data, each
+# separator at its default width: steps, loss type and the grad check's
+# batch. TF-GridNet has none: at this batch a Q-branch PReLU slope's
+# gradient lands 1.5e-2 from float64 on the card and 3.0e-3 on the CPU,
+# past GRAD_TOL on both (scripts/tfgridnet_grad_conditioning.py); its
+# card-against-CPU gradients are held on 1 s in tests/test_torch_gpu.py
+SEP_TRAIN = {"conformer": (10, "si_snr", GRAD_BATCH),
+             "tfgridnet": (3, "si_snr", None),
+             "dpcl": (10, "dpcl", GRAD_BATCH)}
 
 
 def vits_config_dict(workdir: Path) -> dict:
@@ -549,7 +618,13 @@ def vits_draws(i: int, spec_lengths, n_frames: int, z: int = 192,
     return {"noise": noise, "starts": starts.astype(np.int32)}
 
 
+START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's carries the seconds since the start."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1553,6 +1628,97 @@ def enh_config(workdir: Path, name: str, **extra):
     return cfg, workdir / f"{name}.yaml"
 
 
+def seed_model_dir(workdir: Path, name: str, sep: str, conf: dict,
+                   **extra):
+    """A model dir for one separator case: config.yaml
+    (``separator_config``) and seed.npz (seed_flat's weights over the
+    port's parameter tree, SEP_SEED). -> (config path, weights path)."""
+    import numpy as np
+
+    from espnet_tpu_torch import convert
+    from espnet_tpu_torch.tasks.enh import EnhancementTask
+    from espnet_tpu_torch.utils.config import dump_yaml, resolve_config
+    d = workdir / "separators" / name
+    d.mkdir(parents=True, exist_ok=True)
+    cfg = resolve_config(EnhancementTask.default_config(), overrides=(
+        separator_config(sep, conf, **extra)))
+    dump_yaml(cfg, d / "config.yaml")
+    weights = d / "seed.npz"
+    if not weights.exists():
+        np.savez(weights, **seed_flat(
+            {k: v.shape for k, v in convert.state_dict_to_flax(
+                EnhancementTask.build_model(cfg)).items()}, SEP_SEED))
+    return d / "config.yaml", weights
+
+
+def separator_attention_checks(torch, workdir: Path) -> dict:
+    """K1 and K1b at the Conformer separator's shapes, head size 32: its
+    first block's q, k, v and rel-pos bias (no padding: every frame
+    attends every frame) on the first 10 test mixtures (the decode batch
+    of phase 36) and on 8 train mixtures of 4 s (phase 37's batch
+    shape), through tools/kernel_times.py's rows: each against its plain
+    version, launched twice for the same bits, timed by CUDA events and
+    the profiler beside the plain version and SDPA; with its bound.
+    -> {"fwd": row, "bwd": row}."""
+    import numpy as np
+
+    from espnet_tpu_torch.bin.enh_inference import SeparateSpeech
+    from espnet_tpu_torch.data.synth_speech import SynthMixCorpus
+    from espnet_tpu_torch.tools.kernel_times import (attention_bwd_row,
+                                                     attention_fwd_row)
+    cfg_path, weights = seed_model_dir(workdir, "conformer", "conformer", {})
+    model = SeparateSpeech(cfg_path, weights, fs=16000).model
+    attn = model.separator_mod.enc.layers[0].self_attn
+    captured = {}
+    hook = attn.register_forward_pre_hook(
+        lambda module, args: captured.__setitem__("args", args))
+    batches = {"decode": np.stack([SynthMixCorpus().mixture("test", i)[0]
+                                   for i in range(SEP_BATCH)]),
+               "train": np.stack([SynthMixCorpus(seconds=4.0).mixture(
+                   "train", i)[0] for i in range(ENH_TRAIN_BATCH)])}
+    ins = {}
+    with torch.no_grad():
+        for kind, x in batches.items():
+            x = torch.from_numpy(x).cuda()
+            model.forward_enhance(x, torch.full((len(x),), x.shape[1],
+                                                device="cuda"))
+            q, k, v, bias, scale = attn.kernel_inputs(*captured["args"])
+            ins[kind] = (q.contiguous(), k.contiguous(), v.contiguous(),
+                         bias.contiguous())
+    hook.remove()
+    del model
+    fwd_row = attention_fwd_row(torch, *ins["decode"], scale)
+    del ins["decode"]
+    g = torch.Generator(device="cuda").manual_seed(36)
+    dout = torch.randn(ins["train"][0].shape, generator=g, device="cuda")
+    bwd_row = attention_bwd_row(torch, *ins["train"], dout, scale)
+    fwd_row["tol"] = K1_TOL
+    bwd_row |= {"tol": K1B_TOL, "tol_of": "max abs err / max |plain|"}
+    for row in (fwd_row, bwd_row):
+        bound(row, tensor_cores=True)
+    d = fwd_row["shape"][3]
+    if not (fwd_row["max_abs_err"] <= K1_TOL and fwd_row["same_bits_twice"]):
+        raise AssertionError(f"flash_attn_fwd at d = {d}: error "
+                             f"{fwd_row['max_abs_err']}, same bits "
+                             f"{fwd_row['same_bits_twice']}")
+    worst = max(e["rel_err"] for e in bwd_row["errors"].values())
+    if not (worst <= K1B_TOL and bwd_row["same_bits_twice"]):
+        raise AssertionError(f"flash_attn_bwd at d = {d}: "
+                             f"{bwd_row['errors']}, same bits "
+                             f"{bwd_row['same_bits_twice']}")
+    return {"fwd": fwd_row, "bwd": bwd_row}
+
+
+def separator_config(sep: str, conf: dict, **extra) -> dict:
+    """The TCN asset's config with another separator at its JAX class's
+    width (``conf`` overrides the defaults, as the recipe's
+    --separator_conf does)."""
+    from espnet_tpu_torch.utils.config import load_yaml
+    cfg = load_yaml(ENH / "config.yaml")
+    cfg.update(separator=sep, separator_conf=dict(conf), **extra)
+    return cfg
+
+
 def enhancement_phases(torch, _cuda, workdir: Path, smi: str, speech_np,
                        lengths_np, refs) -> dict:
     """Phases 19-23: separation, its CLI, training and streaming on the
@@ -1917,6 +2083,335 @@ def enhancement_phases(torch, _cuda, workdir: Path, smi: str, speech_np,
                              f"above the JAX package's {jax_wer} + "
                              f"{S2T_WER_MARGIN}")
     return s2t_decode_launches, s2t_want
+
+
+def kmeans_trace(emb, n_clusters: int = 2, n_iter: int = 10):
+    """kmeans_tf_bins's Lloyd steps (separators.lloyd_step) on bin
+    embeddings (B, N, D), each step's labels and the gap of each bin's two
+    nearest centers over the nearer one's distance -> (labels, gaps), each
+    (n_iter + 1, B, N) numpy on the host, the last step's labels
+    kmeans_tf_bins's, and its centers (B, K, D)."""
+    import numpy as np
+    import torch
+
+    from espnet_tpu_torch.models.enh.separators import lloyd_step
+    centers = emb[:, :n_clusters]
+    labels, gaps = [], []
+    for step in range(n_iter + 1):
+        d, new = lloyd_step(emb, centers)
+        two = torch.topk(d, 2, dim=-1, largest=False).values
+        labels.append(d.argmin(-1).to(torch.uint8).cpu().numpy())
+        gaps.append(((two[..., 1] - two[..., 0])
+                     / two[..., 0].abs().clamp(min=1e-30)).cpu().numpy())
+        if step < n_iter:
+            centers = new
+    return np.stack(labels), np.stack(gaps), centers
+
+
+def trace_agreement(ours, theirs, gaps) -> dict:
+    """Two k-means traces (kmeans_trace's labels) against each other, the
+    reference's gaps beside them: the final labels' equal share, and for
+    each mixture the first Lloyd step whose labels differ, where every
+    difference must lie at a near-tie of the reference's distances (the
+    centers up to there differ only by rounding); later steps' and the
+    final differences are downstream of those."""
+    import numpy as np
+    differ = ours != theirs                       # (S, B, N)
+    final = differ[-1]
+    first_gaps, diverged = [], []
+    for b in range(differ.shape[1]):
+        steps = np.nonzero(differ[:, b].any(-1))[0]
+        if len(steps):
+            s0 = steps[0]
+            first_gaps.extend(gaps[s0, b][differ[s0, b]].tolist())
+            diverged.append([int(b), int(s0), int(final[b].sum())])
+    ok_ties = bool(np.all(np.asarray(first_gaps) <= NEAR_TIE_REL))
+    share = float(1 - final.mean())
+    return {"n_bins": int(final.size), "n_differ": int(final.sum()),
+            "equal_share": share,
+            "mixtures_diverged": diverged,
+            "rows": "[mixture, first Lloyd step that differs, final bins "
+                    "that differ]",
+            "first_step_flips": len(first_gaps),
+            "first_step_largest_gaps": sorted(first_gaps)[-10:],
+            "near_tie_tol": NEAR_TIE_REL,
+            "first_steps_at_near_ties": ok_ties,
+            "ok": bool(share >= LABELS_EQUAL_MIN and ok_ties)}
+
+
+def separator_phases(torch, _cuda, workdir: Path, smi: str) -> dict:
+    """Phases 36-38: the single-channel STFT separators, each at its JAX
+    class's width from seed_flat's weights, separating the 50 test
+    mixtures on the card; then the Conformer, TF-GridNet and DPCL
+    training runs. -> the launches of the Conformer separator's path per
+    decode batch and per train step."""
+    import numpy as np
+
+    from espnet_tpu_torch.bin import enh_train
+    from espnet_tpu_torch.bin.enh_inference import SeparateSpeech
+    from espnet_tpu_torch.data.synth_speech import SynthMixCorpus
+    from espnet_tpu_torch.models.enh.model import EnhancementModel
+    from espnet_tpu_torch.ops.stft import istft, stft
+    from espnet_tpu_torch.tasks.enh import EnhancementTask
+    from espnet_tpu_torch.train.checkpoint import load_checkpoint
+
+    ref = json.loads(SEP_REFERENCE.read_text(encoding="utf-8"))
+    corpus = SynthMixCorpus()
+    mixtures = [corpus.mixture("test", i) for i in range(N_MIX)]
+    mixes = np.stack([m for m, _, _ in mixtures])
+    refs = [[r1, r2] for _, r1, r2 in mixtures]
+    energy = [float(np.sum(np.square(m, dtype=np.float64))) for m in mixes]
+    if not max(abs(a / b - 1) for a, b in zip(energy, ref["mix_energy"])) \
+            <= 1e-6:
+        raise AssertionError("the test mixtures differ from the JAX "
+                             "reference's")
+    none = {n: 0 for n in _cuda.LAUNCHES}
+    paths = {"decode": {}, "train_step": {}}
+
+    # 36. each separator through SeparateSpeech on the card, batches of
+    # 10: a warm-up batch, then the 50 mixtures counted and timed; the
+    # first SEP_CPU_MIX mixtures on the CPU; the estimates against the
+    # JAX package's (scripts/jax_enh_separators_reference.json)
+    def separated(ss, n):
+        """(2, n, S): the first n mixtures through ss, batches of 10."""
+        return np.concatenate([np.stack(ss(mixes[b:min(b + SEP_BATCH, n)]))
+                               for b in range(0, n, SEP_BATCH)], axis=1)
+
+    for name, sep, conf in SEPARATOR_CASES:
+        cfg_path, weights = seed_model_dir(workdir, name, sep, conf)
+        jref = ref["separators"][name]
+        clustering = name in CLUSTERING
+        embeds = {"cuda": [], "cpu": []}
+        models = {}
+        for dev in embeds:
+            models[dev] = SeparateSpeech(cfg_path, weights, fs=16000,
+                                         device=dev)
+            if clustering:
+                models[dev].model.separator_mod.embed.register_forward_hook(
+                    lambda m, a, out, dev=dev: embeds[dev].append(
+                        torch.tanh(out)))
+        emb_D = getattr(models["cpu"].model.separator_mod, "emb_D", None)
+        models["cuda"](mixes[:SEP_BATCH])
+        embeds["cuda"].clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        card = separated(models["cuda"], N_MIX)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        # on the CPU the first 2 mixtures; the clustering cases' k-means
+        # traces on 10: one that diverges moves a whole bin, or a DAN
+        # attractor
+        cpu = separated(models["cpu"], min(
+            SEP_CPU_CLUSTER_MIX if clustering else SEP_CPU_MIX, N_MIX))
+        del models
+        card_emb, cpu_emb = embeds["cuda"], embeds["cpu"]
+        n_cpu = cpu.shape[1]
+        peaks = unpack(jref["peak"])[:, :N_MIX]
+        jslice = unpack(jref["slice"])[:, :N_MIX]
+        sl = card[:, :, SLICE_AT:SLICE_AT + SLICE_LEN]
+        slice_err = np.abs(sl - jslice).max(-1) / peaks      # (2, N_MIX)
+        row = {"separator": sep, "separator_conf": conf,
+               "shape": list(card.shape), "finite": bool(
+                   np.isfinite(card).all()),
+               "pit_si_snr_mean": float(np.mean([
+                   pit_si_snr([e[i] for e in card], refs[i])
+                   for i in range(N_MIX)])),
+               "jax_pit_si_snr_mean": float(np.mean(jref["pit_si_snr"])),
+               "separated_audio_s_per_s": N_MIX * 4.0 / wall,
+               "wall_seconds": wall, "peak_memory_bytes": peak,
+               "launches": launches, "tol": SEP_TOL}
+        # the estimates held against JAX's slices: a clustering case's
+        # own where its labels agree with JAX's as far as the JSON shows
+        # them, and every mixture's as below
+        held = np.ones(N_MIX, bool)
+        gated_err = slice_err
+        if clustering:
+            T_ = card_emb[0].shape[1]
+            c_emb = torch.cat(card_emb).reshape(N_MIX, -1, emb_D)
+            c_labs, _, c_centers = kmeans_trace(c_emb)
+            p_emb = torch.cat(cpu_emb).reshape(n_cpu, -1, emb_D)
+            p_labs, p_gaps, _ = kmeans_trace(p_emb)
+            c_lab = c_labs[-1]
+            n_bins = c_lab.shape[1]
+            F_ = n_bins // T_
+            jlab = np.unpackbits(unpack(jref["labels"]["first"]), axis=-1,
+                                 count=n_bins)
+            jemb = unpack(jref["embed_frames"])
+            cemb = c_emb.reshape(N_MIX, T_, -1)[
+                0, EMBED_FRAMES[0]:EMBED_FRAMES[1]].cpu().numpy()
+            lo, hi = (f * F_ for f in SLICE_FRAMES)
+            jframes = np.unpackbits(unpack(jref["labels"]["slice_frames"]),
+                                    axis=-1, count=hi - lo)[:N_MIX]
+            jones = np.asarray(jref["labels"]["ones_per_mixture"][:N_MIX])
+            ones = c_lab.sum(-1)
+            frames_equal = float((c_lab[:, lo:hi] == jframes).mean())
+            x = torch.from_numpy(mixes)
+            real, imag, _ = stft(x, None, n_fft=512, hop_length=128)
+            if sep == "dpcl":
+                # a DPCL estimate is the mixture under a hard mask: where
+                # the card's labels under the slice differ from JAX's (a
+                # k-means trace that diverged at a near-tie moves whole
+                # bins), the card's estimate plus the iSTFT of those bins
+                # moved to JAX's side
+                held = (c_lab[:, lo:hi] == jframes).all(-1)
+                delta = torch.zeros(N_MIX, n_bins)
+                fixed = sl.copy()
+                for s_ in range(2):
+                    delta[:, lo:hi] = torch.from_numpy(
+                        (jframes == s_).astype(np.float32)
+                        - (c_lab[:, lo:hi] == s_))
+                    d_ = delta.reshape(real.shape)
+                    fixed[s_] += istft(real * d_, imag * d_, n_fft=512,
+                                       hop_length=128, length=x.shape[1]
+                                       )[:, SLICE_AT:SLICE_AT + SLICE_LEN
+                                         ].numpy()
+            else:
+                # a DAN estimate is the mixture under the softmax of its
+                # embeddings against the attractors, k-means centers, which
+                # a trace that diverged moves: the card's embeddings
+                # against JAX's attractors, every mixture
+                held = ones == jones
+                held[:N_LABEL_MIX] &= (c_lab[:N_LABEL_MIX] == jlab).all(-1)
+                jatt = torch.from_numpy(unpack(jref["centers"])[:N_MIX]
+                                        ).cuda().transpose(1, 2)
+                m = torch.softmax(c_emb @ jatt, dim=-1).reshape(
+                    *real.shape, 2).cpu()
+                fixed = np.stack([istft(real * m[..., s_], imag * m[..., s_],
+                                        n_fft=512, hop_length=128,
+                                        length=x.shape[1])[
+                    :, SLICE_AT:SLICE_AT + SLICE_LEN].numpy()
+                    for s_ in range(2)])
+                del m, jatt
+            fixed_err = np.abs(fixed - jslice).max(-1) / peaks
+            gated_err = np.maximum(fixed_err, np.where(held, slice_err, 0.0))
+            row["slice_rel_err_with_jax_labels"] = float(fixed_err.max())
+            jequal = float((c_lab[:N_LABEL_MIX] == jlab).mean())
+            row["labels"] = {
+                "card_vs_cpu": trace_agreement(c_labs[:, :n_cpu], p_labs,
+                                               p_gaps),
+                "card_vs_jax_first_mixtures": {
+                    "n_bins": int(jlab.size), "equal_share": jequal,
+                    "ok": jequal >= LABELS_EQUAL_MIN},
+                "card_vs_jax_slice_frames": {
+                    "n_bins": int(jframes.size),
+                    "equal_share": frames_equal,
+                    "ok": frames_equal >= LABELS_EQUAL_MIN},
+                "sha256_equal_jax": hashlib.sha256(c_lab.astype(
+                    np.uint8).tobytes()).hexdigest()
+                == jref["labels"]["sha256"],
+                "mixtures_ones_differ_from_jax": {
+                    int(i): int(ones[i] - jones[i])
+                    for i in np.nonzero(ones != jones)[0]}}
+            row["embed_rel_err_from_jax"] = float(
+                np.abs(cemb - jemb).max() / np.abs(jemb).max())
+            # on the CPU, the estimates from the card's labels (DPCL) or
+            # attractors (DAN)
+            real, imag = real[:n_cpu], imag[:n_cpu]
+            if sep == "dpcl":
+                lab = torch.from_numpy(c_lab[:n_cpu].astype(np.int64)
+                                       ).reshape(real.shape)
+                masks = [(lab == s_).to(real.dtype) for s_ in range(2)]
+            else:
+                att = c_centers[:n_cpu].cpu().transpose(1, 2)
+                m = torch.softmax(p_emb @ att, dim=-1).reshape(
+                    *real.shape, 2)
+                masks = [m[..., s_] for s_ in range(2)]
+            cpu = np.stack([istft(real * mk, imag * mk, n_fft=512,
+                                  hop_length=128, length=x.shape[1]).numpy()
+                            for mk in masks])
+            del c_emb
+        cpu_err = float(max(np.abs(card[s, i] - cpu[s, i]).max()
+                            / np.abs(cpu[s, i]).max()
+                            for s in range(2) for i in range(n_cpu)))
+        row["card_vs_cpu_rel_err"] = cpu_err
+        row["mixtures_against_cpu"] = n_cpu
+        row["slice_rel_err_from_jax"] = float(gated_err.max())
+        row["mixtures_held_against_jax"] = int(held.sum())
+        row["slice_rel_err_unheld"] = {int(i): float(slice_err[:, i].max())
+                                       for i in np.nonzero(~held)[0]}
+        emit({"phase": "enh_separators", "name": name, **row})
+        want = (dict(none, flash_attn_fwd=2 * (N_MIX // SEP_BATCH))
+                if sep == "conformer" else none)
+        if not (row["finite"] and launches == want):
+            raise AssertionError(f"{name}: finite {row['finite']}, launches "
+                                 f"{launches}, not {want}")
+        if not (cpu_err <= SEP_TOL and row["slice_rel_err_from_jax"]
+                <= SEP_TOL):
+            raise AssertionError(f"{name}: card against CPU {cpu_err}, "
+                                 f"against JAX "
+                                 f"{row['slice_rel_err_from_jax']}")
+        if clustering and not (
+                row["labels"]["card_vs_cpu"]["ok"]
+                and row["labels"]["card_vs_jax_first_mixtures"]["ok"]
+                and row["labels"]["card_vs_jax_slice_frames"]["ok"]
+                and row["embed_rel_err_from_jax"] <= SEP_TOL):
+            raise AssertionError(f"{name}: labels {row['labels']}, embedding "
+                                 f"{row['embed_rel_err_from_jax']}")
+        if sep == "conformer":
+            paths["decode"]["enh_conformer"] = {
+                n: v // (N_MIX // SEP_BATCH) for n, v in launches.items()}
+
+    # 37-38. training from seed_flat's weights over phase 21's data: the
+    # Conformer (K1, K1b), TF-GridNet and DPCL with the affinity loss;
+    # each run twice to the same bits, and one backward card against CPU
+    valid_if = None
+    for sep, (n_steps, loss_type, n_grad) in SEP_TRAIN.items():
+        name, conf = sep, {}
+        model_cfg, weights = seed_model_dir(workdir, f"{name}_train", sep,
+                                            conf, loss_type=loss_type)
+
+        def make(run_name, **kw):
+            return enh_config(workdir, f"sep_{name}_{run_name}",
+                              separator=sep, separator_conf=conf,
+                              loss_type=loss_type, init_param=str(weights),
+                              num_iters_per_epoch=n_steps, **kw)
+
+        cfg, cfg_path = make("a")
+        if valid_if is None:
+            valid_if = EnhancementTask.build_iter_factory(cfg, train=False)
+        trainer, per_step, launches, wall, peak = train_run(
+            torch, _cuda, enh_train.main, cfg_path, EnhancementModel)
+        steps = trainer.step_stats
+        want = (dict(none, flash_attn_fwd=2, flash_attn_bwd=4)
+                if sep == "conformer" else none)
+        keys = ("loss",) if loss_type == "dpcl" else ("loss", "si_snr")
+        check_steps(steps, per_step, want, keys, n_steps=n_steps)
+        _, again_path = make("b")
+        enh_train.main(["--config", str(again_path)])
+        first = load_checkpoint(Path(cfg["output_dir"]) / "checkpoint")[0]
+        again = load_checkpoint(workdir / f"sep_{name}_b" / "checkpoint")[0]
+        differ = sorted(k for k in first if not np.array_equal(first[k],
+                                                               again[k]))
+        gcheck = None
+        if n_grad:
+            _, gbatch = valid_if.collate_fn([valid_if.dataset[k] for k in
+                                             valid_if.epoch_batches(0)[0]
+                                             [:n_grad]])
+            gcheck = grad_check(torch, EnhancementTask, model_cfg, weights,
+                                gbatch)
+        step_ms = [1e3 * s["train_time"] for s in steps]
+        emit({"phase": "enh_separator_train", "name": name,
+              "loss_type": loss_type, "batch_size": ENH_TRAIN_BATCH,
+              "steps": [{k: s[k] for k in keys + ("grad_norm", "skipped")}
+                        | {"ms": ms, "launches": n}
+                        for s, ms, n in zip(steps, step_ms, per_step)],
+              "step_ms_median": statistics.median(step_ms[1:] or step_ms),
+              "peak_memory_bytes": peak, "wall_seconds": wall,
+              "launches": launches,
+              "valid_after": trainer.reporter.stats[1]["valid"],
+              "rerun_n_differ": len(differ), "rerun_differs": differ[:5],
+              "grad_check": gcheck, "nvidia_smi": smi})
+        if differ:
+            raise AssertionError(f"{name}: a second {n_steps}-step run "
+                                 f"differs in {len(differ)} parameters, "
+                                 f"e.g. {differ[:3]}")
+        if sep == "conformer":
+            paths["train_step"]["enh_conformer"] = per_step[0]
+    return paths
 
 
 def lm_sentences(corpus, n: int = N_VALID_LM):
@@ -4137,6 +4632,8 @@ def run(torch, workdir: Path):
     banded = banded_checks(torch, lmodel, torch.from_numpy(dspeech).cuda(),
                            torch.from_numpy(dlens).long().cuda(),
                            ltrain_batch)
+    # K1 and K1b at the Conformer separator's shapes (head size 32)
+    sep_attn = separator_attention_checks(torch, workdir)
 
     Bw, S = speech.shape
     nf, n_fft = fe.n_fft // 2 + 1, fe.n_fft
@@ -4246,6 +4743,13 @@ def run(torch, workdir: Path):
                             "max_abs_err": k2_mel_err,
                             "same_bits_twice": k2_mel_same,
                             "mel_loss_rel_diff": k2_mel_loss_rel}},
+        {"name": "flash_attn_fwd+flash_attn_bwd at the Conformer "
+                 "separator's shapes", "shape": sep_attn["fwd"]["shape"],
+         "train_shape": sep_attn["bwd"]["shape"],
+         "max_abs_err": sep_attn["fwd"]["max_abs_err"],
+         "same_bits_twice": sep_attn["fwd"]["same_bits_twice"],
+         "backward": sep_attn["bwd"]["errors"],
+         "backward_same_bits_twice": sep_attn["bwd"]["same_bits_twice"]},
         {"name": "rnnt_alpha+rnnt_beta", "shape": [Bk, Tk3, U1k, Vk],
          "tol": K3_TOL, "tol_of": "max abs err / max |plain|",
          "bit_exact": k3_exact, "same_bits_twice": k3_same,
@@ -4705,6 +5209,10 @@ def run(torch, workdir: Path):
     s2t_decode_launches, s2t_step_launches = enhancement_phases(
         torch, _cuda, workdir, smi, speech_np, lengths_np, refs)
 
+    # 36-38. the single-channel STFT separators and their training (on
+    # phase 21's data)
+    sep_paths = separator_phases(torch, _cuda, workdir, smi)
+
     # 24-26. the LM's perplexity, LM fusion and the VITS -> ASR round trip
     lm_decode_launches, tts_decode_launches = lm_tts_phases(
         torch, _cuda, workdir, smi)
@@ -4736,9 +5244,14 @@ def run(torch, workdir: Path):
                             "enh_s2t": s2t_step_launches,
                             "vits": vits_step, "gan_vocoder": voc_step},
              "valid_batch": {"vits": vits_valid}}
-    for kind_, per_model in (*a5_paths.items(), *spk_cls_paths.items()):
+    for kind_, per_model in (*a5_paths.items(), *spk_cls_paths.items(),
+                             *sep_paths.items()):
         paths[kind_].update(per_model)
     next(k for k in kernels if k["name"] == "logmel_fwd").update(a5_k2)
+    next(k for k in kernels if k["name"] == "flash_attn_fwd")[
+        "at_separator_decode_shape"] = sep_attn["fwd"]
+    next(k for k in kernels if k["name"] == "flash_attn_bwd")[
+        "at_separator_train_shape"] = sep_attn["bwd"]
     main_runs = {"flash_attn_fwd": decode_launches,
                  "flash_attn_bwd": train_launches,
                  "logmel_fwd": decode_launches,
@@ -4756,7 +5269,8 @@ def run(torch, workdir: Path):
             "bound_ms_fp32_cores", "chain_floor_ms", "at_train_shape",
             "at_long_form_train_batch", "at_mel_loss_shape",
             "at_diar_decode_shape", "at_codec_mel_loss_shape",
-            "at_cls_shape", "device_kernels") if key in kern}
+            "at_cls_shape", "at_separator_decode_shape",
+            "at_separator_train_shape", "device_kernels") if key in kern}
         | {"launches": main_runs[kern["name"]][kern["name"]]}
         | {f"launches_per_{kind_}": {
             model_: counts[kern["name"]]

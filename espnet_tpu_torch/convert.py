@@ -13,7 +13,14 @@ that holds it, not by the flax array's shape (a pointwise kernel
 - ConvTranspose1d weight (in, out, K)  <- ConvTranspose kernel (K, in, out),
   reversed in K (flax runs it unflipped over the dilated input)
 - Conv2d weight (O, C, kt, kf)         <- 2-D conv kernel (kt, kf, C, O)
-- LayerNorm ``weight``                 <- ``scale``
+- ConvTranspose2d weight (C, O, kt, kf) <- 2-D ConvTranspose kernel
+  (kt, kf, C, O), reversed in kt and kf
+- DenseHeads weight (H, dk, D)         <- DenseGeneral kernel (D, H, dk)
+  (flax attention's query, key, value)
+- DenseFromHeads weight (D, H, dk)     <- DenseGeneral kernel (H, dk, D)
+  (flax attention's out)
+- LayerNorm ``weight``                 <- ``scale`` (also for the norm
+  over two axes, a LayerNorm whose scale is per channel)
 - Embedding ``weight`` (V, D)          <- Embed ``embedding``
 - every other parameter (biases, ``pos_bias_u``, PReLU's 0-d
   ``negative_slope``)                  <- the array of the same name as it is
@@ -42,6 +49,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from espnet_tpu_torch.nn.attention import DenseFromHeads, DenseHeads
 from espnet_tpu_torch.nn.convolution import DepthwiseConv1d, Pointwise
 
 logger = logging.getLogger(__name__)
@@ -78,6 +86,13 @@ _WEIGHT_LAYOUTS = (
      lambda v: v.transpose(2, 0, 1)[::-1]),
     ((nn.Conv2d,), "kernel", lambda v: v.transpose(3, 2, 0, 1),
      lambda v: v.transpose(2, 3, 1, 0)),
+    ((nn.ConvTranspose2d,), "kernel",
+     lambda v: v[::-1, ::-1].transpose(2, 3, 0, 1),
+     lambda v: v.transpose(2, 3, 0, 1)[::-1, ::-1]),
+    ((DenseHeads,), "kernel", lambda v: v.transpose(1, 2, 0),
+     lambda v: v.transpose(2, 0, 1)),
+    ((DenseFromHeads,), "kernel", lambda v: v.transpose(2, 0, 1),
+     lambda v: v.transpose(1, 2, 0)),
 )
 
 

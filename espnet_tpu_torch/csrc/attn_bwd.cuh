@@ -43,7 +43,9 @@
 //   - dv += P^T do and dk += dS^T q, 3xTF32, with P^T and dS^T taken
 //     straight from the registers that hold them (k slot t <- query 2t,
 //     slot t + 4 <- query 2t + 1, and do and q rows read in that order),
-//     into accumulators of 16 keys x d per warp.
+//     into accumulators of 16 keys x d per warp, each 8-query step from
+//     zero and added rounded to nearest (attn_common.cuh:mma_3xtf32; so
+//     is dq's each 8-key step).
 //
 // attn_bwd_dq_kernel: one block of up to 2 (K1b) or 4 (K4b) warps per
 // (b, h, query tile); each warp owns 16 query rows and walks the key chunks

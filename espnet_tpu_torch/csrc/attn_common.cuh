@@ -69,15 +69,26 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// c += a b in 3xTF32: the small cross terms first, then hi * hi
+// c += a b in 3xTF32: the small cross terms first, then hi * hi, formed
+// from zero and added to c in fp32 rounded to nearest on the CUDA cores.
+// The tensor cores' accumulator truncates each sum (rounds toward zero),
+// so a long chain of k steps accumulated there drifts by a bias of ~2^-23
+// a step: over 501 keys (63 steps of 3) K1's output landed 2.6e-5 from
+// its plain version, and the backward's D = rowsum(do * o) moved a
+// gradient that is zero in exact arithmetic (a key bias under the
+// softmax) past a card-against-CPU check; with each step's three products
+// from zero only they share the truncation.
 __device__ __forceinline__ void mma_3xtf32(float (&c)[4],
                                            const uint32_t (&ah)[4],
                                            const uint32_t (&al)[4],
                                            const uint32_t (&bh)[2],
                                            const uint32_t (&bl)[2]) {
-  mma_tf32(c, al, bh);
-  mma_tf32(c, ah, bl);
-  mma_tf32(c, ah, bh);
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, al, bh);
+  mma_tf32(t, ah, bl);
+  mma_tf32(t, ah, bh);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] = __fadd_rn(c[e], t[e]);
 }
 
 // rows [0, nrows) of a (rows x d) matrix whose row i starts at

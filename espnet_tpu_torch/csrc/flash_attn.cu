@@ -33,7 +33,10 @@
 // P v is 3xTF32 on the tensor cores: each fp32 operand x is split into
 // hi = tf32_rn(x) and lo = tf32_rn(x - hi), and each product formed as
 // lo*hi + hi*lo + hi*hi with fp32 accumulation (CUTLASS's
-// OpMultiplyAddFastF32). The dropped terms are ~2^-21 of a product, and with
+// OpMultiplyAddFastF32), each 8-key step from zero and added to the output
+// rounded to nearest on the CUDA cores (attn_common.cuh:mma_3xtf32: the
+// tensor cores' own accumulator truncates, which over 501 keys biased the
+// output by 2.6e-5). The dropped terms are ~2^-21 of a product, and with
 // P in [0, 1] the output keeps fp32-level accuracy (~1e-5 at |v| = 30). The
 // kernel's arithmetic is fixed here: it does not read torch's allow_tf32
 // flags (tasks/asr.py turns those off for the library products around it).

@@ -5,12 +5,19 @@ Encoders: "stft" (the separator masks the magnitude; each mask scales the
 complex spectrum, and the iSTFT gives the wave) and "conv" (Conv-TasNet:
 a strided convolution and a ReLU make the representation the separator
 masks, and a transposed convolution with the learned basis adds the
-frames back). The port has the "mask" output kind, single-channel
-separators and the time-domain criteria; the JAX package's
-``complex_mask``, ``spectrum`` and ``dpcl`` outputs, its time-domain and
-multichannel separators and the deep-clustering loss raise
-NotImplementedError (ROADMAP A.4). A multichannel mixture goes through
-its channel 0, as in the JAX package.
+frames back). A separator's class attributes say what it takes and gives
+(``separators.py``): ``complex_input`` ones take the (real, imag)
+spectrum instead of the magnitude; "mask" outputs scale the spectrum,
+"complex_mask" ones multiply it as complex numbers, "spectrum" ones are
+the estimates themselves, and a "dpcl" embedding is clustered by
+k-means into binary masks. ``needs_ref_spectra`` separators (DAN) take
+the references' STFT magnitudes in training. ``loss_type: dpcl`` trains
+a DPCL embedding with the affinity loss instead of a signal criterion.
+The conv encoder takes only real-mask separators (ValueError otherwise,
+as in the JAX package). The JAX package's time-domain and multichannel
+separators raise NotImplementedError when built (ROADMAP A.4), so the
+model has no branch for them; a multichannel mixture goes through its
+channel 0, as in the JAX package.
 
 The conv encoder's ``basis`` is a torch ConvTranspose1d, which adds
 x[t] w[k] at t * stride + k; flax's ConvTranspose (transpose_kernel
@@ -27,7 +34,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from espnet_tpu_torch.models.enh.losses import CRITERIA, pit_loss
-from espnet_tpu_torch.models.enh.separators import SEPARATORS
+from espnet_tpu_torch.models.enh.separators import (SEPARATORS, dpcl_loss,
+                                                    kmeans_tf_bins)
 from espnet_tpu_torch.ops.stft import istft, stft
 
 
@@ -42,10 +50,9 @@ class EnhancementModel(nn.Module):
         super().__init__()
         if encoder not in ("stft", "conv"):
             raise ValueError(f"encoder {encoder!r}: 'stft' or 'conv'")
-        if loss_type not in CRITERIA:
-            raise NotImplementedError(
-                f"loss_type {loss_type!r} is not ported yet (ROADMAP A.4); "
-                f"the port has {sorted(CRITERIA)}")
+        if loss_type not in CRITERIA and loss_type != "dpcl":
+            raise ValueError(f"loss_type {loss_type!r}: the port has "
+                             f"{sorted(CRITERIA) + ['dpcl']}")
         self.num_spk = num_spk
         self.encoder = encoder
         self.n_fft = n_fft
@@ -63,21 +70,59 @@ class EnhancementModel(nn.Module):
             in_dim = n_fft // 2 + 1
         self.separator_mod = SEPARATORS[separator](
             input_dim=in_dim, num_spk=num_spk, **dict(separator_conf or {}))
+        sep = self.separator_mod
+        if encoder == "conv" and (
+                getattr(sep, "complex_input", False)
+                or getattr(sep, "output", "mask") != "mask"
+                or getattr(sep, "needs_ref_spectra", False)):
+            raise ValueError(
+                f"encoder='conv' requires a real-mask separator; "
+                f"{separator!r} uses complex_input/output="
+                f"{getattr(sep, 'output', 'mask')!r} - use encoder='stft' "
+                f"for it")
 
     def forward_enhance(self, speech_mix: torch.Tensor,
-                        speech_lengths: torch.Tensor):
-        """-> (list over speakers of (B, S) estimates, lengths, masks)."""
+                        speech_lengths: torch.Tensor, refs=None):
+        """-> (list over speakers of (B, S) estimates, lengths, masks).
+        ``refs`` (a list of (B, S) references) reach a
+        ``needs_ref_spectra`` separator as STFT magnitudes; without them
+        it takes its inference route."""
         if speech_mix.dim() == 3:
             speech_mix = speech_mix[..., 0]
         if self.encoder == "conv":
             return self._enhance_time_domain(speech_mix, speech_lengths)
         real, imag, _ = stft(speech_mix, speech_lengths, n_fft=self.n_fft,
                              hop_length=self.hop_length)
-        feats = torch.sqrt(real * real + imag * imag + 1e-8)
-        masks = self.separator_mod(feats)
+        sep = self.separator_mod
+        if getattr(sep, "complex_input", False):
+            feats = (real, imag)
+        else:
+            feats = torch.sqrt(real * real + imag * imag + 1e-8)
+        kw = {}
+        if getattr(sep, "needs_ref_spectra", False) and refs is not None:
+            kw["refs_mag"] = [self._ref_mag(r) for r in refs]
+        masks = sep(feats, **kw)
+        out_kind = getattr(sep, "output", "mask")
+        if out_kind == "dpcl":
+            # the bins' embedding clustered into binary masks
+            B, T, Fq, D = masks.shape
+            lab, _ = kmeans_tf_bins(masks.reshape(B, T * Fq, D),
+                                    self.num_spk)
+            lab = lab.reshape(B, T, Fq)
+            masks = [(lab == s).to(real.dtype) for s in range(self.num_spk)]
+            out_kind = "mask"
         S = speech_mix.shape[1]
-        ests = [istft(real * m, imag * m, n_fft=self.n_fft,
-                      hop_length=self.hop_length, length=S) for m in masks]
+        ests = []
+        for m in masks:
+            if out_kind == "spectrum":
+                er, ei = m
+            elif out_kind == "complex_mask":
+                mr, mi = m
+                er, ei = real * mr - imag * mi, real * mi + imag * mr
+            else:
+                er, ei = real * m, imag * m
+            ests.append(istft(er, ei, n_fft=self.n_fft,
+                              hop_length=self.hop_length, length=S))
         return ests, speech_lengths, masks
 
     def _ref_mag(self, ref):
@@ -102,11 +147,21 @@ class EnhancementModel(nn.Module):
                 speech_ref2=None, generator=None, **kw):
         """-> (loss, stats {loss, si_snr}, weight = B). References come
         as speech_ref{n}; other batch entries (their lengths) are not
-        read."""
+        read. With loss_type dpcl the loss is the affinity loss of the
+        separator's embedding, and stats hold the loss alone."""
         refs = [speech_ref1]
         if speech_ref2 is not None and self.num_spk >= 2:
             refs.append(speech_ref2)
-        ests, _, _ = self.forward_enhance(speech_mix, speech_mix_lengths)
+        if self.loss_type == "dpcl":
+            real, imag, _ = stft(speech_mix, speech_mix_lengths,
+                                 n_fft=self.n_fft,
+                                 hop_length=self.hop_length)
+            emb = self.separator_mod(torch.sqrt(real * real + imag * imag
+                                                + 1e-8))
+            loss = dpcl_loss(emb, [self._ref_mag(r) for r in refs]).mean()
+            return loss, {"loss": loss}, float(speech_mix.shape[0])
+        ests, _, _ = self.forward_enhance(speech_mix, speech_mix_lengths,
+                                          refs=refs)
         loss_fn = CRITERIA[self.loss_type]
         if len(refs) > 1:
             per_utt, _ = pit_loss(loss_fn, ests[:len(refs)], refs,

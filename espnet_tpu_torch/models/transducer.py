@@ -43,18 +43,29 @@ class LSTMCell(nn.Module):
             self.add_module(f"h{gate}", nn.Linear(hidden_size, hidden_size))
 
     def input_proj(self, x):
-        """The input kernels of all four gates at once: (..., 4H)."""
+        """The input kernels of all four gates at once, plus the hidden
+        biases: (..., 4H), formed once for every step of a sequence."""
         w = torch.cat([getattr(self, f"i{g}").weight for g in self.GATES])
-        return x @ w.t()
-
-    def forward(self, carry, x_proj):
-        """carry (c, h), x_proj = input_proj(x) -> (c', h')."""
-        c, h = carry
-        w = torch.cat([getattr(self, f"h{g}").weight for g in self.GATES])
         b = torch.cat([getattr(self, f"h{g}").bias for g in self.GATES])
-        i, f, g, o = (h @ w.t() + b + x_proj).chunk(4, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        return c, torch.sigmoid(o) * torch.tanh(c)
+        return x @ w.t() + b
+
+    def hidden_kernel(self):
+        """The hidden kernels of all four gates, transposed: (H, 4H)."""
+        return torch.cat([getattr(self, f"h{g}").weight
+                          for g in self.GATES]).t()
+
+    def forward(self, carry, x_proj, hidden_kernel=None):
+        """carry (c, h), x_proj = input_proj(x) -> (c', h'): one addmm
+        and one sigmoid over the four gates. A caller that steps many
+        times passes ``hidden_kernel()`` once."""
+        c, h = carry
+        wt = self.hidden_kernel() if hidden_kernel is None else hidden_kernel
+        z = torch.addmm(x_proj, h, wt)
+        H = c.shape[-1]
+        gates = torch.sigmoid(z)
+        c = gates[:, H:2 * H] * c + gates[:, :H] * torch.tanh(
+            z[:, 2 * H:3 * H])
+        return c, gates[:, 3 * H:] * torch.tanh(c)
 
 
 class RNNDecoder(nn.Module):

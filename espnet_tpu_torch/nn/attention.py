@@ -13,6 +13,12 @@ terms b + d) become an additive bias of the fused attention; content
 scores (a + c) are its q k^T. With attention dropout in training the
 softmax is written out, so that dropout can act on the probabilities
 (the JAX package's dispatch); otherwise the fused kernel runs.
+
+``SelfAttention`` is flax's ``nn.SelfAttention`` (DPTNet's) in its own
+parameter layout: ``query``, ``key`` and ``value`` project (B, T, D) to
+(B, T, H, dk) by kernels (D, H, dk) with biases (H, dk), ``out`` takes
+(H, dk) back to D; q is scaled by 1/sqrt(dk) before q k^T, and the
+softmax is written out (no kernel stands behind it in the JAX package).
 """
 
 from __future__ import annotations
@@ -128,3 +134,51 @@ class RelPositionMultiHeadedAttention(nn.Module):
             out = fused_attention(q_u, k, v, bias, sm_scale=sm_scale)
         B, _, T, _ = out.shape
         return self.linear_out(out.transpose(1, 2).reshape(B, T, -1))
+
+
+class DenseHeads(nn.Module):
+    """flax ``DenseGeneral(features=(H, dk))`` over the last axis: weight
+    (H, dk, D) (the flax kernel (D, H, dk), transposed by ``convert.py``)
+    and bias (H, dk); (B, T, D) -> (B, H, T, dk)."""
+
+    def __init__(self, n_feat: int, n_head: int, d_head: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(n_head, d_head, n_feat))
+        self.bias = nn.Parameter(torch.zeros(n_head, d_head))
+
+    def forward(self, x):
+        return (torch.einsum("btd,hkd->bhtk", x, self.weight)
+                + self.bias[None, :, None, :])
+
+
+class DenseFromHeads(nn.Module):
+    """flax ``DenseGeneral(features=D, axis=(-2, -1))``: weight (D, H, dk)
+    (the flax kernel (H, dk, D), transposed) and bias (D,); (B, H, T, dk)
+    -> (B, T, D)."""
+
+    def __init__(self, n_head: int, d_head: int, n_feat: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(n_feat, n_head, d_head))
+        self.bias = nn.Parameter(torch.zeros(n_feat))
+
+    def forward(self, x):
+        return torch.einsum("bhtk,dhk->btd", x, self.weight) + self.bias
+
+
+class SelfAttention(nn.Module):
+    """flax ``nn.SelfAttention(num_heads=H)`` with its defaults
+    (qkv_features = out_features = D, biases, no dropout or mask)."""
+
+    def __init__(self, n_feat: int, n_head: int):
+        super().__init__()
+        dk = n_feat // n_head
+        self.dk = dk
+        self.query = DenseHeads(n_feat, n_head, dk)
+        self.key = DenseHeads(n_feat, n_head, dk)
+        self.value = DenseHeads(n_feat, n_head, dk)
+        self.out = DenseFromHeads(n_head, dk, n_feat)
+
+    def forward(self, x):
+        q = self.query(x) / math.sqrt(self.dk)
+        attn = torch.softmax(q @ self.key(x).transpose(-1, -2), dim=-1)
+        return self.out(attn @ self.value(x))

@@ -6,7 +6,9 @@ normalises with LayerNorm, as the JAX package does (not BatchNorm).
 LayerNorms use flax's epsilon, 1e-6. In training, dropout acts on each
 sub-block's output before its residual add, inside the feed-forwards, and
 on the positional encoding; Conv2dSubsampling has none, as in the JAX
-package.
+package. The input layer is ``conv2d`` (Conv2dSubsampling x4) or
+``linear`` (one Linear, the enhancement separator's: no norm, no
+activation, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -80,16 +82,24 @@ class ConformerEncoderLayer(nn.Module):
 
 
 class ConformerEncoder(nn.Module):
-    """Conv2dSubsampling x4 -> rel-pos encoding -> blocks -> LayerNorm."""
+    """input layer -> rel-pos encoding -> blocks -> LayerNorm."""
 
     def __init__(self, input_size: int, output_size: int = 256,
                  attention_heads: int = 4, linear_units: int = 2048,
                  num_blocks: int = 6, cnn_module_kernel: int = 31,
                  dropout_rate: float = 0.1,
                  positional_dropout_rate: float = 0.1,
-                 attention_dropout_rate: float = 0.0):
+                 attention_dropout_rate: float = 0.0,
+                 input_layer: str = "conv2d"):
         super().__init__()
-        self.embed = Conv2dSubsampling(input_size, output_size)
+        if input_layer == "conv2d":
+            self.embed = Conv2dSubsampling(input_size, output_size)
+        elif input_layer == "linear":
+            self.embed = nn.Linear(input_size, output_size)
+        else:
+            raise NotImplementedError(f"input_layer {input_layer!r}: the "
+                                      f"port has conv2d and linear")
+        self.input_layer = input_layer
         self.pos_enc = RelPositionalEncoding(output_size,
                                              positional_dropout_rate)
         self.layers = nn.ModuleList(
@@ -101,7 +111,10 @@ class ConformerEncoder(nn.Module):
 
     def forward(self, xs: torch.Tensor, ilens: torch.Tensor):
         """(B, T, F) features -> (B, T', D), lengths (B,)."""
-        xs, olens = self.embed(xs, ilens)
+        if self.input_layer == "conv2d":
+            xs, olens = self.embed(xs, ilens)
+        else:
+            xs, olens = self.embed(xs), ilens
         xs, pos_emb = self.pos_enc(xs)
         valid = make_non_pad_mask(olens, xs.shape[1])
         for layer in self.layers:

@@ -1,7 +1,8 @@
 """Depthwise 1-D convolution (counterpart of
 espnet_tpu/nn/convolution.py:DepthwiseConv1d, stride 1, SAME or VALID
 padding, any kernel dilation), flax's pointwise convolution, and flax's
-``SAME`` alignment for a 1-D or 2-D convolution and a 1-D transposed one.
+``SAME`` alignment for a 1-D or 2-D convolution and a 1-D or 2-D
+transposed one.
 
 flax's ``SAME`` pads a convolution of stride s over n inputs to
 ceil(n / s) outputs: by total = max((ceil(n / s) - 1) s + span + 1 - n, 0)
@@ -15,7 +16,7 @@ a + b = K + s - 2, with a = K - 1 when s > K - 1 and ceil((K + s - 2) / 2)
 otherwise: T * s outputs. torch's conv_transpose1d without padding pads
 by K - 1 on both sides, (T - 1) s + K outputs, so flax's are those from
 K - 1 - a on (``transpose_same_crop``), and past torch's end (b > K - 1)
-the bias alone."""
+the bias alone. The 2-D one crops each axis so."""
 
 from __future__ import annotations
 
@@ -128,3 +129,24 @@ class SameConvTranspose1d(nn.ConvTranspose1d):
         # outputs see no input, only the bias
         y = F.pad(y, (0, max(self.crop + n - y.shape[-1], 0)))
         return y[..., self.crop:self.crop + n] + self.bias[:, None]
+
+
+class SameConvTranspose2d(nn.ConvTranspose2d):
+    """flax ``nn.ConvTranspose(out, (kh, kw), strides=(sh, sw),
+    padding="SAME")`` on channels-first (B, C, H, W) -> (B, out, H * sh,
+    W * sw): each axis cropped as ``SameConvTranspose1d``'s."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size,
+                 stride):
+        super().__init__(in_channels, out_channels, tuple(kernel_size),
+                         stride=tuple(stride))
+        self.crops = tuple(transpose_same_crop(k, s) for k, s in
+                           zip(self.kernel_size, self.stride))
+
+    def forward(self, x):
+        (ch, cw), (sh, sw) = self.crops, self.stride
+        nh, nw = x.shape[-2] * sh, x.shape[-1] * sw
+        y = F.conv_transpose2d(x, self.weight, None, self.stride)
+        y = F.pad(y, (0, max(cw + nw - y.shape[-1], 0),
+                      0, max(ch + nh - y.shape[-2], 0)))
+        return y[..., ch:ch + nh, cw:cw + nw] + self.bias[:, None, None]

@@ -26,7 +26,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from espnet_tpu_torch.models.enh.separators import TCNBlock, TCNSeparator
+from espnet_tpu_torch.models.enh.separators import (ConformerSeparator,
+                                                    TCNBlock, TCNSeparator,
+                                                    TFGridNetSeparator,
+                                                    TransformerSeparator)
 from espnet_tpu_torch.models.spk import (EcapaEncoder, SERes2NetBlock,
                                           SkaTdnnEncoder)
 from espnet_tpu_torch.models.tts.fastspeech2 import VariancePredictor
@@ -48,7 +51,10 @@ def relu_inputs(model) -> dict:
     too): the subsampling's two convolutions, the first linear of each
     ReLU feed-forward, and in the TCN separator the 1x1 and depthwise
     convolutions of each block, the last block (its output goes into the
-    PReLU before the masks) and the mask convolution of ReLU masks; each
+    PReLU before the masks) and the mask convolution of ReLU masks; the
+    mask heads of the Conformer and Transformer separators' ReLU masks
+    (and the Transformer's linear input, a ReLU after its LayerNorm);
+    TF-GridNet's attention projections (each into a PReLU); each
     convolution of a variance (duration) predictor; in a speaker
     encoder (ECAPA, SKA-TDNN) the input normalisation and the output
     convolution, and in each SE-Res2Net block both normalisations and the
@@ -75,17 +81,30 @@ def relu_inputs(model) -> dict:
             out[f"{name}.{last}"] = getattr(m, last)
             if m.nonlinear == "relu":
                 out[f"{name}.mask_out"] = m.mask_out
+        elif isinstance(m, (ConformerSeparator, TransformerSeparator)):
+            if m.nonlinear == "relu":
+                out.update({f"{name}.mask{s}": getattr(m, f"mask{s}")
+                            for s in range(m.num_spk)})
+            if isinstance(m, TransformerSeparator):
+                out[f"{name}.enc.embed_norm"] = m.enc.embed_norm
+        elif isinstance(m, TFGridNetSeparator):
+            out.update({f"{name}.{c}": sub
+                        for c, sub in m.named_children()
+                        if c.startswith("attn") and c[4] in "QKVO"
+                        and isinstance(sub, torch.nn.Linear)})
     return out
 
 
 def take_side(out, want):
     """``out`` moved onto the side of 0 that ``want`` gives (True: above
-    0, by at least the smallest normal float; False: at or below it),
-    with an identity gradient. The value is the side itself: adding the
-    move to ``out`` would round a move of a negative value to +tiny back
-    to 0, which a ReLU masks."""
-    side = torch.where(want, out.clamp(min=torch.finfo(out.dtype).tiny),
-                       out.clamp(max=0.0))
+    0, False: below it, each by at least the smallest normal float), with
+    an identity gradient. The value is the side itself: adding the move
+    to ``out`` would round a move of a negative value to +tiny back to 0,
+    which a ReLU masks. Strictly below 0, because a PReLU (flax's, and
+    the port's) takes 0 on its positive side: a unit moved to exactly 0
+    would take the other branch of its gradient there."""
+    tiny = torch.finfo(out.dtype).tiny
+    side = torch.where(want, out.clamp(min=tiny), out.clamp(max=-tiny))
     return side.detach() + (out - out.detach())
 
 
@@ -99,8 +118,9 @@ def pin_relus(modules: dict, signs: dict, moved: dict | None = None) -> list:
     def hook(name):
         def pin(module, args, out):
             if moved is None:
+                # an exact 0 goes below 0 here too, as on the other legs
                 signs[name] = out > 0
-                return None
+                return take_side(out, signs[name])
             want = signs[name].to(out.device)
             flip = want != (out > 0)
             if bool(flip.any()):

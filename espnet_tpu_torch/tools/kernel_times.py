@@ -15,7 +15,12 @@ From seeded random data, at the shapes of the paths that run them:
 - ``fused_attention_bwd`` (K1b) at the flagship's train shape (25, 4, 145,
   64) with an f32 bias plus padding, and ``banded_attention_bwd`` (K4b) at
   the long-form train shape, each beside SDPA's autograd backward on the
-  same inputs.
+  same inputs;
+- ``fused_attention`` (K1) at the flagship's decode shape (64, 4, 145, 64)
+  and at the Conformer separator's (10, 4, 501, 32), and K1b at the
+  separator's train shape (8, 4, 501, 32), each against its plain
+  version (``attention_fwd_row``, ``attention_bwd_row``: chip_smoke.py
+  holds K1 and K1b at the separator's own inputs with them).
 
 For each: the mean of 20 calls by CUDA events around the wrapper (its host
 time included), and torch.profiler's device time of each kernel over 10
@@ -75,6 +80,97 @@ def timed(torch, kernel, library=None) -> dict:
                 "library_device_ms": sum(e["ms"] for e in lib),
                 "library_device_kernels": lib}
     return out
+
+
+def attention_fwd_row(torch, q, k, v, bias, scale: float) -> dict:
+    """K1 on (q, k, v, bias): its largest error against the plain
+    version, whether two launches give the same output and row
+    statistics, its times (``timed``) beside SDPA's with the bias as a
+    float mask and the plain version's, its bytes and operations."""
+    import torch.nn.functional as F
+
+    from espnet_tpu_torch.ops import attention
+    B, H, T, d = q.shape
+    with torch.no_grad():
+        def fwd():
+            return attention.fused_attention(q, k, v, bias, sm_scale=scale)
+
+        def plain():
+            return attention.fused_attention_plain(q, k, v, bias,
+                                                   sm_scale=scale)
+
+        o1, s1 = attention._launch_fwd(q, k, v, bias, False, scale, True)
+        o2, s2 = attention._launch_fwd(q, k, v, bias, False, scale, True)
+        row = {"shape": [B, H, T, d],
+               "max_abs_err": float((fwd() - plain()).abs().max()),
+               "same_bits_twice": bool(torch.equal(o1, o2)
+                                       and torch.equal(s1, s2)),
+               "plain_ms": event_ms(torch, plain),
+               "library_note": "scaled_dot_product_attention with the "
+                               "float bias as attn_mask",
+               "flops": 4.0 * B * H * T * T * d,
+               "bytes": 4.0 * (4 * B * H * T * d + bias.numel())}
+        del o1, s1, o2, s2
+        return row | timed(torch, fwd, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias, scale=scale))
+
+
+def attention_bwd_row(torch, q, k, v, bias, dout, scale: float) -> dict:
+    """K1b on (q, k, v, bias) and dout: each gradient through the
+    kernels' autograd against the plain version's (its largest error, and
+    that over the plain one's largest entry), the sum over the keys of dk
+    over dk's largest entry for both (zero in exact arithmetic: the
+    gradient of a key bias under the softmax), whether two launches give
+    the same bits, its times (``timed``) beside SDPA's autograd backward
+    with the bias needing a gradient and the plain version's, its bytes
+    and operations."""
+    import torch.nn.functional as F
+
+    from espnet_tpu_torch.ops import attention
+    B, H, T, d = q.shape
+    grads = {}
+    for route, fn in (("kernel", attention.fused_attention),
+                      ("plain", attention.fused_attention_plain)):
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (q, k, v, bias)]
+        grads[route] = torch.autograd.grad(fn(*leaves, sm_scale=scale),
+                                           leaves, dout)
+    with torch.no_grad():
+        out = attention.fused_attention_plain(q, k, v, bias, sm_scale=scale)
+        stats = attention.softmax_stats_plain(q, k, bias, sm_scale=scale)
+
+    def bwd():
+        return attention.fused_attention_bwd(q, k, v, bias, out, stats,
+                                             dout, sm_scale=scale)
+
+    def plain():
+        return attention.fused_attention_bwd_plain(q, k, v, bias, out,
+                                                   stats, dout,
+                                                   sm_scale=scale)
+
+    lib_ins = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
+    lib_out = F.scaled_dot_product_attention(*lib_ins[:3],
+                                             attn_mask=lib_ins[3],
+                                             scale=scale)
+    errors = {n: {"max_abs_err": float((a - b).abs().max()),
+                  "rel_err": float((a - b).abs().max() / b.abs().max())}
+              for n, a, b in zip(("dq", "dk", "dv", "dbias"),
+                                 grads["kernel"], grads["plain"])}
+    row = {"shape": [B, H, T, d], "errors": errors,
+           "max_abs_err": max(e["max_abs_err"] for e in errors.values()),
+           "key_sum_over_max": {
+               r: float(g_[1].sum(2).abs().max() / g_[1].abs().max())
+               for r, g_ in grads.items()},
+           "same_bits_twice": all(torch.equal(a, b)
+                                  for a, b in zip(bwd(), bwd())),
+           "plain_ms": event_ms(torch, plain),
+           "library_note": "autograd backward of scaled_dot_product_attention"
+                           " with the float bias needing a gradient",
+           "flops": 10.0 * B * H * T * T * d,
+           "bytes": 4.0 * (8 * B * H * T * d + 2 * B * H * T * T)}
+    del grads
+    return row | timed(torch, bwd, lambda: torch.autograd.grad(
+        lib_out, lib_ins, dout, retain_graph=True))
 
 
 def main(argv=None):
@@ -177,6 +273,18 @@ def main(argv=None):
             bq, bk, bv, valid, bo, bstats, bdout, window=W, sm_scale=scale),
         lambda: torch.autograd.grad(blib_out, bins, bdout,
                                     retain_graph=True))
+
+    for name, (B, T, d_) in (("flash_attn_fwd_decode", (64, 145, 64)),
+                             ("flash_attn_fwd_separator", (10, 501, 32))):
+        q, k, v = (torch.randn(B, H, T, d_, generator=g, device="cuda")
+                   for _ in range(3))
+        bias = torch.randn(B, H, T, T, generator=g, device="cuda")
+        out[name] = attention_fwd_row(torch, q, k, v, bias, d_ ** -0.5)
+    q, k, v, dout = (torch.randn(8, H, 501, 32, generator=g, device="cuda")
+                     for _ in range(4))
+    bias = torch.randn(8, H, 501, 501, generator=g, device="cuda")
+    out["flash_attn_bwd_separator"] = attention_bwd_row(
+        torch, q, k, v, bias, dout, 32 ** -0.5)
     print(json.dumps(out), flush=True)
 
 

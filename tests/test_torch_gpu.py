@@ -23,7 +23,11 @@ version's, and VITS and vocoder training repeat themselves bit for bit.
 The ECAPA speaker embedding on the card is within 1e-4 of the CPU's, the
 keyword classifier through the log-mel kernel within 1e-4 of its plain
 frontend, and speaker and classification training repeat themselves bit
-for bit.
+for bit. The Conformer separator (the attention kernels at head size 32)
+and TF-GridNet separate within 1e-4 of the CPU, and one backward of each
+on the card is within 1e-3 of the CPU's gradients (the ReLU and PReLU
+sides and the attention's inputs pinned, as chip_smoke's grad check
+pins them).
 """
 
 from pathlib import Path
@@ -75,6 +79,7 @@ def _relpos_bias(B, H, T, d, g):
     (5, 4, 17, 145, 64, False),
     (2, 3, 33, 47, 20, False),
     (2, 3, 70, 7, 40, True),
+    (10, 4, 501, 501, 32, False),
 ])
 def test_flash_attn_kernel_matches_plain(B, H, Tq, Tk, d, causal):
     _cuda_or_skip()
@@ -193,6 +198,7 @@ def _strided(*ts):
     (2, 3, 7, 70, 40, True, "full"),
     (2, 3, 70, 7, 40, True, "full"),
     (3, 2, 130, 129, 128, False, None),
+    (8, 4, 501, 501, 32, False, "relpos"),
 ])
 def test_flash_attn_backward_kernel_matches_plain(B, H, Tq, Tk, d, causal,
                                                   bias_kind):
@@ -1264,3 +1270,81 @@ def test_spk_and_cls_training_on_the_card_repeats_itself_bit_for_bit(
     for name in finals[0]:
         np.testing.assert_array_equal(finals[1][name], finals[0][name],
                                       err_msg=name)
+
+
+def _seeded_separator(sep, seed=0):
+    """The TCN asset's config with ``sep`` at its default width, and the
+    weights of its parameter tree from RandomState(seed) at init scale
+    (chip_smoke.seed_flat's rule)."""
+    from espnet_tpu_torch.tasks.enh import EnhancementTask
+    from espnet_tpu_torch.utils.config import load_yaml
+    cfg = dict(load_yaml(ENH / "config.yaml"), separator=sep,
+               separator_conf={})
+    model = EnhancementTask.build_model(cfg)
+    rng = np.random.RandomState(seed)
+    flat = {}
+    for key, value in sorted(convert.state_dict_to_flax(model).items()):
+        x = rng.randn(*value.shape)
+        name = key.rsplit("/", 1)[-1]
+        x = (x / np.sqrt(np.prod(value.shape[:-1])) if name == "kernel"
+             else 1.0 + 0.05 * x if name == "scale" else 0.05 * x)
+        flat[key] = np.asarray(x, np.float32)
+    return cfg, flat
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sep,n_mix,seconds", [("conformer", 2, 4.0),
+                                               ("tfgridnet", 1, 1.0)])
+def test_separator_on_the_card_matches_the_cpu(sep, n_mix, seconds):
+    # the separator at its default width on test mixtures: the estimates
+    # within 1e-4 of their largest sample on the card and on the CPU, the
+    # same bits twice on the card (the Conformer through the attention
+    # forward at head size 32, 2 launches); one backward of the PIT loss
+    # on each, the CPU's ReLU / PReLU inputs and attention inputs moved
+    # onto the card's (tools/grad_pin.py), every gradient within 1e-3 of
+    # its scale (the larger of its own largest entry and 1e-4 of the
+    # model's largest)
+    _cuda_or_skip()
+    from espnet_tpu_torch.data.synth_speech import SynthMixCorpus
+    from espnet_tpu_torch.tasks.enh import EnhancementTask
+    from espnet_tpu_torch.tools import grad_pin
+    cfg, flat = _seeded_separator(sep)
+    corpus = SynthMixCorpus(seconds=seconds)
+    mixtures = [corpus.mixture("test", i) for i in range(n_mix)]
+    batch = {k: torch.from_numpy(np.stack([m[j] for m in mixtures]))
+             for j, k in enumerate(("speech_mix", "speech_ref1",
+                                    "speech_ref2"))}
+    batch["speech_mix_lengths"] = torch.full((n_mix,),
+                                             batch["speech_mix"].shape[1])
+    signs, store, grads, ests = {}, {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        model = convert.load_flax_params(EnhancementTask.build_model(cfg),
+                                         flat).to(dev).eval()
+        on = {k: v.to(dev) for k, v in batch.items()}
+        _cuda.reset_launch_counts()
+        with torch.no_grad():
+            ests[dev] = [e.cpu() for e in model.forward_enhance(
+                on["speech_mix"], on["speech_mix_lengths"])[0]]
+            if dev == "cuda":
+                again = model.forward_enhance(on["speech_mix"],
+                                              on["speech_mix_lengths"])[0]
+                assert all(torch.equal(a.cpu(), b)
+                           for a, b in zip(again, ests[dev]))
+                want = 4 if sep == "conformer" else 0
+                assert _cuda.LAUNCHES["flash_attn_fwd"] == want
+        noted = None if dev == "cuda" else {}
+        hooks = (grad_pin.pin_relus(grad_pin.relu_inputs(model), signs,
+                                    noted)
+                 + grad_pin.pin_attention(model, store, noted))
+        loss, _, _ = model(**on)
+        loss.backward()
+        for h in hooks:
+            h.remove()
+        grads[dev] = convert.state_dict_to_flax(model, grad=True)
+        assert all(r[2] <= grad_pin.MOVE_TOL for r in (noted or {}).values())
+    for a, b in zip(ests["cuda"], ests["cpu"]):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+    top = max(float(np.abs(g).max()) for g in grads["cpu"].values())
+    for name, g in grads["cpu"].items():
+        scale = max(float(np.abs(g).max()), 1e-4 * top)
+        assert np.abs(grads["cuda"][name] - g).max() <= 1e-3 * scale, name

@@ -43,9 +43,7 @@ def jax_references_unoptimized():
 
 @pytest.fixture
 def one_torch_thread():
-    """One torch thread per worker: the suite runs workers side by side.
-    Not for test_float64_leg_is_float64_and_pinned_as_the_fp32_leg, whose
-    fp32 sums keep the default thread count's order."""
+    """One torch thread per worker: the suite runs workers side by side."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -57,13 +55,15 @@ def one_torch_thread():
 def test_take_side_puts_each_unit_on_the_wanted_side(dtype):
     # magnitudes from 1e-9 to 10: a negative unit wanted above 0 must come
     # out above 0 (a move to +tiny added to the value itself would round
-    # back to 0, which a ReLU masks)
+    # back to 0, which a ReLU masks), and a positive one wanted below 0
+    # strictly below it (a PReLU takes 0 on its positive branch)
     rng = np.random.RandomState(0)
     x = rng.randn(4096) * 10.0 ** rng.randint(-9, 2, 4096)
     out = torch.tensor(x, dtype=dtype, requires_grad=True)
     want = torch.from_numpy(rng.rand(4096) < 0.5)
     pinned = grad_pin.take_side(out, want)
     assert torch.equal(torch.relu(pinned) > 0, want)
+    assert torch.equal(pinned >= 0, want)
     keep = want == (out > 0)
     assert torch.equal(pinned[keep], out[keep])
     tiny = torch.finfo(dtype).tiny
@@ -113,16 +113,31 @@ def _flagship_batch():
             "text_lengths": torch.tensor([4, 3])}
 
 
-def test_float64_leg_is_float64_and_pinned_as_the_fp32_leg():
+@pytest.mark.usefixtures("one_torch_thread")
+def test_float64_leg_is_float64_and_pinned_as_the_fp32_leg(monkeypatch):
     # the flagship on two held-out utterances, as grad_check runs its CPU
-    # legs: an fp32 backward notes its ReLU sides, a float64 one takes
-    # them; every gradient of the float64 leg is float64 and within 1e-4
-    # of its scale of the fp32 one (fp32 rounding through 6 blocks and 3
-    # decoder layers, ~1e-5; a ReLU unit on the other side would move a
-    # gradient by a whole unit's term, ~1e-3)
+    # legs: an fp32 backward notes its ReLU sides and its rel-pos
+    # self-attentions' inputs, a float64 one takes them; every gradient of
+    # the float64 leg is float64 and within 1e-4 of its scale of the fp32
+    # one (fp32 rounding through 6 blocks and 3 decoder layers, ~1e-5; a
+    # ReLU unit on the other side would move a gradient by a whole unit's
+    # term, ~1e-3). The fp32 leg's attention products run in float64,
+    # rounded to fp32 after: the flagship's scores reach ~1e3 and most rows
+    # put > 0.99 on one key, which turns the fp32 rounding of q k^T into
+    # up to 1.6e-4 of layer 1's pos_bias_v gradient, more or less with the
+    # summation order of the thread count (4.3e-5 on two threads); in
+    # float64 the worst ratio is 0.8-1.4e-5 on 1 to 8 threads
+    from espnet_tpu_torch.ops import attention
+    plain = attention.fused_attention_plain
+
+    def plain_in_float64(q, k, v, bias=None, **kw):
+        return plain(q.double(), k.double(), v.double(),
+                     None if bias is None else bias.double(), **kw
+                     ).to(q.dtype)
+
     from espnet_tpu_torch.tasks.asr import ASRTask
     batch = _flagship_batch()
-    signs, grads, moved = {}, {}, {}
+    signs, grads, moved, store = {}, {}, {}, {}
     for leg in ("fp32", "float64"):
         model, _ = ASRTask.build_model_from_file(FLAGSHIP / "config.yaml",
                                                  FLAGSHIP, "cpu")
@@ -130,6 +145,10 @@ def test_float64_leg_is_float64_and_pinned_as_the_fp32_leg():
             grad_pin.to_float64(model)
         grad_pin.pin_relus(grad_pin.relu_inputs(model), signs,
                            moved if leg == "float64" else None)
+        grad_pin.pin_attention(model, store,
+                               moved if leg == "float64" else None)
+        monkeypatch.setattr(attention, "fused_attention_plain",
+                            plain_in_float64 if leg == "fp32" else plain)
         loss, _, _ = model(**batch)
         loss.backward()
         assert loss.dtype == (torch.float64 if leg == "float64"
