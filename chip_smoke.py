@@ -293,6 +293,35 @@ Phases, each printing one JSON line:
     weights at batch 8: per-step records, a second run bit-identical,
     and grad_check for the Conformer and DPCL (TF-GridNet's is left out,
     see SEP_TRAIN).
+39. enh_time_domain (after phase 38; a multichannel_data line first:
+    the 50 test mixtures' 4-channel reverberant versions and their TSE
+    enrollments, built in numpy, each input's energy equal to the JAX
+    reference's): SVoice and FaSNet at their JAX classes' default widths
+    from seed_flat's weights through SeparateSpeech(fs=16000) over the 50
+    mixtures, and FaSNet through forward_enhance over the 4-channel ones,
+    in batches of 10 after a warm-up batch (audio-s/s, peak memory, no
+    launch of any kernel); the first 2 mixtures on the CPU, each
+    estimate within 1e-4 of its largest sample, and against the JAX
+    package's (scripts/jax_enh_multichannel_reference.json: MC_WINDOW
+    samples and each estimate's peak), within 1e-4 of its largest;
+40. enh_multichannel: USES (mic 0), USES2, TF-GridNetV2 (4 mics), V3
+    (mic 0), iNeuBe (4 mics, dnn2) and the MVDR neural beamformer on the
+    4-channel mixtures, held as phase 39;
+41. enh_array_dsp, no weights: WPE on mic 0, MVDR under ref1's oracle
+    IRM and the multi-frame multichannel Wiener filter toward ref1's
+    mic-0 image, on all 50, in fp32 and in float64 on the card and the
+    CPU: each mixture's SI-SNR within 0.05 dB of the JAX package's; each
+    float64 output within 1e-4 of the CPU's largest sample, and each fp32
+    one too or, past it, no farther from the float64 run than 3 times the
+    CPU fp32 leg (the systems' largest condition numbers beside);
+42. enh_tse: ExtractSpeech (TSEModel at n_fft 512, hop 128, seed_flat's
+    weights) over the 50 mixtures and enrollments, held as phase 39;
+    enh_tse_train for 10 steps at batch 8 over phase 21's mixtures with
+    their enrollments, a second run bit-identical, grad_check;
+43. enh_separator_train_2: bin/enh_train.py with SVoice (5 steps,
+    grad_check on the middle second of 8 mixtures) and TF-GridNetV2 (3
+    steps, its blocks checkpointed; its grad check left out as
+    TF-GridNet's), each run twice to the same bits, peak memory.
 
 Then the nvidia-smi line, one {"kernels": [...]} line (errors, times and
 bounds of phase 4, launches from the paths that run each kernel; a bound
@@ -585,6 +614,51 @@ LABELS_EQUAL_MIN = 0.999
 SEP_TRAIN = {"conformer": (10, "si_snr", GRAD_BATCH),
              "tfgridnet": (3, "si_snr", None),
              "dpcl": (10, "dpcl", GRAD_BATCH)}
+# the time-domain and multichannel separators, the array DSP and
+# target-speaker extraction (phases 39-43): each separator at its JAX
+# class's default width in the TCN asset's config, weights
+# seed_flat(..., SEP_SEED); 4-channel reverberant versions of the 50 test
+# mixtures (reverb_mixture) and TSE triples (tse_enrollment); the JAX
+# package's figures on the same inputs from
+# scripts/jax_enh_multichannel_reference.py
+MC_REFERENCE = ROOT / "scripts" / "jax_enh_multichannel_reference.json"
+N_MICS = 4
+RIR_LEN = 4000          # each RIR: a direct path at 0..MAX_DELAY samples,
+MAX_DELAY = 8           # gain 0.7-1.0, and from TAIL_AT samples later a
+TAIL_AT = 40            # Gaussian tail decaying by 60 dB over RT60
+RT60 = 0.3
+TAIL_GAIN = 0.05
+TIME_DOMAIN_CASES = (("svoice", "svoice", {}), ("fasnet", "fasnet", {}))
+# (name, separator, conf, channels fed): USES and V3 take mic 0
+MULTICHANNEL_CASES = (
+    ("uses", "uses", {}, 1), ("uses2", "uses2", {}, N_MICS),
+    ("tfgridnetv2", "tfgridnetv2", {"n_imics": N_MICS}, N_MICS),
+    ("tfgridnetv3", "tfgridnetv3", {}, 1),
+    ("ineube", "ineube", {"mic_channels": N_MICS, "output_from": "dnn2"},
+     N_MICS),
+    ("neural_beamformer", "neural_beamformer", {}, N_MICS))
+MC_CPU_MIX = 2          # mixtures on the CPU too, and in the JAX JSON
+MC_WINDOW = (24000, 4096)   # (start, length) of their estimates held
+REVERB_SEED = 3900      # mixture i's RIRs: RandomState(REVERB_SEED + i)
+TSE_ENROLL_S = 3.0
+TSE_STEPS = 10
+DSP_MARGIN = 0.05       # dB either side of JAX's SI-SNR(i), per mixture
+# phase 41: where an fp32 output of the card is past SEP_TOL of the
+# CPU's, its distance from the float64 run may be at most this many times
+# the CPU fp32 leg's (PERF.md section 6: the readings behind it)
+DSP_FP32_RATIO = 3.0
+# card training on phase 21's data: steps, the grad check's batch and the
+# samples of each of its mixtures. SVoice's grad check takes the middle
+# second of each of GRAD_BATCH mixtures: its three CPU legs over whole 4 s
+# mixtures (12800 LSTM steps a forward) took most of the phase (PERF.md
+# section 4). TF-GridNetV2's blocks run checkpointed (remat); its grad
+# check is left out for TF-GridNet's reason (SEP_TRAIN): at 2 mixtures a
+# time BLSTM kernel's gradient lands 2.1e-3 from float64 on the card,
+# 7.1e-4 with the frame attention's P v in float64
+# (scripts/tfgridnet_grad_conditioning.py --separator tfgridnetv2; ROADMAP
+# C.1)
+SEP_TRAIN_2 = {"svoice": (5, GRAD_BATCH, 16000),
+               "tfgridnetv2": (3, None, None)}
 
 
 def vits_config_dict(workdir: Path) -> dict:
@@ -2147,13 +2221,9 @@ def separator_phases(torch, _cuda, workdir: Path, smi: str) -> dict:
     decode batch and per train step."""
     import numpy as np
 
-    from espnet_tpu_torch.bin import enh_train
     from espnet_tpu_torch.bin.enh_inference import SeparateSpeech
     from espnet_tpu_torch.data.synth_speech import SynthMixCorpus
-    from espnet_tpu_torch.models.enh.model import EnhancementModel
     from espnet_tpu_torch.ops.stft import istft, stft
-    from espnet_tpu_torch.tasks.enh import EnhancementTask
-    from espnet_tpu_torch.train.checkpoint import load_checkpoint
 
     ref = json.loads(SEP_REFERENCE.read_text(encoding="utf-8"))
     corpus = SynthMixCorpus()
@@ -2358,60 +2428,595 @@ def separator_phases(torch, _cuda, workdir: Path, smi: str) -> dict:
     # 37-38. training from seed_flat's weights over phase 21's data: the
     # Conformer (K1, K1b), TF-GridNet and DPCL with the affinity loss;
     # each run twice to the same bits, and one backward card against CPU
-    valid_if = None
     for sep, (n_steps, loss_type, n_grad) in SEP_TRAIN.items():
-        name, conf = sep, {}
-        model_cfg, weights = seed_model_dir(workdir, f"{name}_train", sep,
-                                            conf, loss_type=loss_type)
-
-        def make(run_name, **kw):
-            return enh_config(workdir, f"sep_{name}_{run_name}",
-                              separator=sep, separator_conf=conf,
-                              loss_type=loss_type, init_param=str(weights),
-                              num_iters_per_epoch=n_steps, **kw)
-
-        cfg, cfg_path = make("a")
-        if valid_if is None:
-            valid_if = EnhancementTask.build_iter_factory(cfg, train=False)
-        trainer, per_step, launches, wall, peak = train_run(
-            torch, _cuda, enh_train.main, cfg_path, EnhancementModel)
-        steps = trainer.step_stats
         want = (dict(none, flash_attn_fwd=2, flash_attn_bwd=4)
                 if sep == "conformer" else none)
-        keys = ("loss",) if loss_type == "dpcl" else ("loss", "si_snr")
-        check_steps(steps, per_step, want, keys, n_steps=n_steps)
-        _, again_path = make("b")
-        enh_train.main(["--config", str(again_path)])
-        first = load_checkpoint(Path(cfg["output_dir"]) / "checkpoint")[0]
-        again = load_checkpoint(workdir / f"sep_{name}_b" / "checkpoint")[0]
-        differ = sorted(k for k in first if not np.array_equal(first[k],
-                                                               again[k]))
-        gcheck = None
-        if n_grad:
-            _, gbatch = valid_if.collate_fn([valid_if.dataset[k] for k in
-                                             valid_if.epoch_batches(0)[0]
-                                             [:n_grad]])
-            gcheck = grad_check(torch, EnhancementTask, model_cfg, weights,
-                                gbatch)
-        step_ms = [1e3 * s["train_time"] for s in steps]
-        emit({"phase": "enh_separator_train", "name": name,
-              "loss_type": loss_type, "batch_size": ENH_TRAIN_BATCH,
-              "steps": [{k: s[k] for k in keys + ("grad_norm", "skipped")}
-                        | {"ms": ms, "launches": n}
-                        for s, ms, n in zip(steps, step_ms, per_step)],
-              "step_ms_median": statistics.median(step_ms[1:] or step_ms),
-              "peak_memory_bytes": peak, "wall_seconds": wall,
-              "launches": launches,
-              "valid_after": trainer.reporter.stats[1]["valid"],
-              "rerun_n_differ": len(differ), "rerun_differs": differ[:5],
-              "grad_check": gcheck, "nvidia_smi": smi})
-        if differ:
-            raise AssertionError(f"{name}: a second {n_steps}-step run "
-                                 f"differs in {len(differ)} parameters, "
-                                 f"e.g. {differ[:3]}")
+        per_step = train_separator(torch, _cuda, workdir, smi, sep, {},
+                                   n_steps, loss_type, n_grad, want,
+                                   "enh_separator_train")
         if sep == "conformer":
             paths["train_step"]["enh_conformer"] = per_step[0]
     return paths
+
+
+def train_separator(torch, _cuda, workdir: Path, smi: str, sep: str,
+                    conf: dict, n_steps: int, loss_type: str, n_grad,
+                    want: dict, phase: str, grad_samples=None) -> list:
+    """bin/enh_train.py over phase 21's data with ``sep`` at its JAX
+    class's width (``conf`` over the defaults) from seed_flat's weights,
+    n_steps at batch 8, each step with launches ``want``; a second run
+    to the same bits; with ``n_grad``, grad_check on that many valid
+    mixtures, each cut to its middle ``grad_samples`` samples where that
+    is given. Emits the ``phase`` line. -> launches per step."""
+    import numpy as np
+
+    from espnet_tpu_torch.bin import enh_train
+    from espnet_tpu_torch.models.enh.model import EnhancementModel
+    from espnet_tpu_torch.tasks.enh import EnhancementTask
+    from espnet_tpu_torch.train.checkpoint import load_checkpoint
+    name = sep
+    model_cfg, weights = seed_model_dir(workdir, f"{name}_train", sep, conf,
+                                        loss_type=loss_type)
+
+    def make(run_name, **kw):
+        return enh_config(workdir, f"sep_{name}_{run_name}", separator=sep,
+                          separator_conf=conf, loss_type=loss_type,
+                          init_param=str(weights),
+                          num_iters_per_epoch=n_steps, **kw)
+
+    cfg, cfg_path = make("a")
+    trainer, per_step, launches, wall, peak = train_run(
+        torch, _cuda, enh_train.main, cfg_path, EnhancementModel)
+    steps = trainer.step_stats
+    keys = ("loss",) if loss_type == "dpcl" else ("loss", "si_snr")
+    check_steps(steps, per_step, want, keys, n_steps=n_steps)
+    _, again_path = make("b")
+    enh_train.main(["--config", str(again_path)])
+    first = load_checkpoint(Path(cfg["output_dir"]) / "checkpoint")[0]
+    again = load_checkpoint(workdir / f"sep_{name}_b" / "checkpoint")[0]
+    differ = sorted(k for k in first if not np.array_equal(first[k],
+                                                           again[k]))
+    gcheck = None
+    if n_grad:
+        valid_if = EnhancementTask.build_iter_factory(cfg, train=False)
+        _, gbatch = valid_if.collate_fn([valid_if.dataset[k] for k in
+                                         valid_if.epoch_batches(0)[0]
+                                         [:n_grad]])
+        if grad_samples:
+            gbatch = middle_samples(gbatch, grad_samples)
+        gcheck = grad_check(torch, EnhancementTask, model_cfg, weights,
+                            gbatch)
+    step_ms = [1e3 * s["train_time"] for s in steps]
+    emit({"phase": phase, "name": name, "separator_conf": conf,
+          "loss_type": loss_type, "batch_size": ENH_TRAIN_BATCH,
+          "steps": [{k: s[k] for k in keys + ("grad_norm", "skipped")}
+                    | {"ms": ms, "launches": n}
+                    for s, ms, n in zip(steps, step_ms, per_step)],
+          "step_ms_median": statistics.median(step_ms[1:] or step_ms),
+          "peak_memory_bytes": peak, "wall_seconds": wall,
+          "launches": launches,
+          "valid_after": trainer.reporter.stats[1]["valid"],
+          "rerun_n_differ": len(differ), "rerun_differs": differ[:5],
+          "grad_check": gcheck, "nvidia_smi": smi})
+    if differ:
+        raise AssertionError(f"{name}: a second {n_steps}-step run differs "
+                             f"in {len(differ)} parameters, e.g. "
+                             f"{differ[:3]}")
+    return per_step
+
+
+def middle_samples(batch: dict, n: int) -> dict:
+    """A collated batch of waves of one length S (padded to their length
+    bucket) cut to their middle n samples, the lengths to n."""
+    import numpy as np
+    lens = batch["speech_mix_lengths"]
+    if not (lens == lens[0]).all():
+        raise ValueError("middle_samples takes waves of one length")
+    at = (int(lens[0]) - n) // 2
+    return {k: (np.full_like(v, n) if k.endswith("_lengths")
+                else v[:, at:at + n]) for k, v in batch.items()}
+
+
+def reverb_mixture(mix, r1, r2, index: int):
+    """The 4-channel reverberant version of test mixture ``index`` (its
+    mixture and two references): each source convolved (by FFT, in
+    float64) with a room response per mic from
+    RandomState(REVERB_SEED + index): a direct path at a delay of
+    0..MAX_DELAY samples and a gain of 0.7-1.0, then from TAIL_AT samples
+    later a Gaussian tail of TAIL_GAIN times that gain decaying by 60 dB
+    over RT60, cut at RIR_LEN samples. -> (the mixture (S, N_MICS), each
+    source's image (2, S, N_MICS), each source's direct path at mic 0
+    (2, S)), float32."""
+    import numpy as np
+
+    from espnet_tpu_torch.data.synth_speech import FS
+    rng = np.random.RandomState(REVERB_SEED + index)
+    S = len(mix)
+    n_fft = 1 << (S + RIR_LEN - 1).bit_length()
+    decay = np.exp(-3 * np.log(10) * np.arange(RIR_LEN) / (RT60 * FS))
+    images = np.zeros((2, S, N_MICS))
+    direct = np.zeros((2, S))
+    for k, src in enumerate((r1, r2)):
+        src = np.asarray(src, np.float64)
+        spec = np.fft.rfft(src, n_fft)
+        for m in range(N_MICS):
+            d, g = rng.randint(MAX_DELAY + 1), rng.uniform(0.7, 1.0)
+            h = np.zeros(RIR_LEN)
+            h[d] = g
+            h[d + TAIL_AT:] = (TAIL_GAIN * g * rng.randn(RIR_LEN - d - TAIL_AT)
+                               * decay[TAIL_AT:RIR_LEN - d])
+            images[k, :, m] = np.fft.irfft(spec * np.fft.rfft(h, n_fft),
+                                           n_fft)[:S]
+            if m == 0:
+                direct[k, d:] = g * src[:S - d]
+    return (images.sum(0).astype(np.float32), images.astype(np.float32),
+            direct.astype(np.float32))
+
+
+def tse_enrollment(corpus, split: str, index: int):
+    """The enrollment of mixture ``index`` of ``split`` (a SynthMixCorpus):
+    the first utterance of ref1's speaker in a seeded search over
+    SynthSpeechCorpus's "enroll-{split}" utterances (their speakers read
+    from ``transcript``, which draws no wave), cropped or zero-padded to
+    TSE_ENROLL_S seconds at a seeded offset. -> float32 (samples,)."""
+    import numpy as np
+
+    from espnet_tpu_torch.data.synth_speech import FS
+    base = corpus.base
+    first = int(base._rng_for(f"mix-{split}", index).randint(10 ** 6))
+    speaker = base.transcript(f"mixsrc-{split}", first)[1]
+    rng = base._rng_for(f"enroll-{split}", index)
+    for _ in range(10000):
+        j = int(rng.randint(10 ** 6))
+        if base.transcript(f"enroll-{split}", j)[1] == speaker:
+            break
+    else:
+        raise RuntimeError(f"no enrollment of speaker {speaker}")
+    wave = np.asarray(base.utterance(f"enroll-{split}", j)[0], np.float32)
+    n = int(TSE_ENROLL_S * FS)
+    if len(wave) >= n:
+        off = rng.randint(len(wave) - n + 1)
+        return wave[off:off + n]
+    out = np.zeros((n,), np.float32)
+    off = rng.randint(n - len(wave) + 1)
+    out[off:off + len(wave)] = wave
+    return out
+
+
+def multichannel_data(n: int = N_MIX):
+    """The first n test mixtures, their 4-channel reverberant versions and
+    TSE enrollments: {"mixes" (n, S), "refs" (n, 2, S), "mix4" (n, S, 4),
+    "images" (n, 2, S, 4), "direct" (n, 2, S), "enroll" (n, S_e)}."""
+    import numpy as np
+
+    from espnet_tpu_torch.data.synth_speech import SynthMixCorpus
+    corpus = SynthMixCorpus()
+    triples = [corpus.mixture("test", i) for i in range(n)]
+    reverb = [reverb_mixture(*tr, i) for i, tr in enumerate(triples)]
+    return {"mixes": np.stack([m for m, _, _ in triples]),
+            "refs": np.stack([np.stack([a, b]) for _, a, b in triples]),
+            "mix4": np.stack([r[0] for r in reverb]),
+            "images": np.stack([r[1] for r in reverb]),
+            "direct": np.stack([r[2] for r in reverb]),
+            "enroll": np.stack([tse_enrollment(corpus, "test", i)
+                                for i in range(n)])}
+
+
+def energies(x) -> list:
+    """Each row's sum of squares in float64."""
+    import numpy as np
+    x = np.asarray(x)
+    return np.sum(np.square(x.reshape(len(x), -1), dtype=np.float64),
+                  axis=1).tolist()
+
+
+def array_dsp(torch, mix4, images, dev: str, batch: int = SEP_BATCH,
+              conds=None) -> dict:
+    """The array DSP on 4-channel mixtures (N, S, 4) at n_fft 512, hop
+    128, in the inputs' precision (float32: complex64 systems, as the
+    JAX package; float64: complex128): WPE (its defaults) on mic 0; MVDR
+    (ref mic 0) from the spatial covariances under ref1's oracle IRM at
+    mic 0, |S1| / (|S1| + |X0 - S1| + 1e-8), and its complement; the
+    multi-frame multichannel Wiener filter (iNeuBe's defaults) toward
+    ref1's mic-0 image. -> {"wpe", "mvdr", "mfmcwf": (N, S) numpy}. With
+    ``conds`` (a dict), the largest condition number of each one's
+    systems, taken from the matrices themselves."""
+    import numpy as np
+
+    from espnet_tpu_torch.models.enh.beamformer import (loaded_noise,
+                                                        mvdr_filter,
+                                                        spatial_covariance)
+    from espnet_tpu_torch.models.enh.separators import mfmcwf, mfmcwf_system
+    from espnet_tpu_torch.models.enh.wpe import wpe_iterates
+    from espnet_tpu_torch.ops.stft import istft, stft, stft_channels
+    kw = {"n_fft": 512, "hop_length": 128}
+    out = {"wpe": [], "mvdr": [], "mfmcwf": []}
+
+    def note(kind, a):
+        if conds is not None:
+            conds[kind] = max(conds.get(kind, 0.0), float(np.linalg.cond(
+                a.cpu().numpy().astype(np.complex128)).max()))
+
+    with torch.no_grad():
+        for b in range(0, len(mix4), batch):
+            x = torch.from_numpy(mix4[b:b + batch]).to(dev)
+            B, S, _ = x.shape
+            re, im = stft_channels(x, **kw)               # (B, T, F, C)
+            spec = torch.complex(re, im).transpose(-1, -2)    # (B, T, C, F)
+            for system, y in wpe_iterates(spec[:, :, :1]):
+                note("wpe", system)
+            y = y[:, :, 0]
+            out["wpe"].append(istft(y.real, y.imag, length=S, **kw))
+            sr, si, _ = stft(torch.from_numpy(images[b:b + batch, 0, :, 0]
+                                              ).to(dev), None, **kw)
+            s_mag = torch.sqrt(sr * sr + si * si)
+            n_mag = (spec[:, :, 0] - torch.complex(sr, si)).abs()
+            irm = s_mag / (s_mag + n_mag + 1e-8)
+            valid = torch.ones(B, re.shape[1], dtype=torch.bool, device=dev)
+            psd_n = spatial_covariance(spec, 1 - irm, valid)
+            note("mvdr", loaded_noise(psd_n))
+            w = mvdr_filter(spatial_covariance(spec, irm, valid), psd_n)
+            enh = torch.einsum("bfc,btcf->btf", w.conj(), spec)
+            out["mvdr"].append(istft(enh.real, enh.imag, length=S, **kw))
+            if conds is not None:
+                note("mfmcwf", mfmcwf_system(re, im, sr, si)[0])
+            br, bi = mfmcwf(re, im, sr, si)
+            out["mfmcwf"].append(istft(br, bi, length=S, **kw))
+    return {k: torch.cat(v).cpu().numpy() for k, v in out.items()}
+
+
+def dsp_si_snrs(outs: dict, mix4, images, direct) -> dict:
+    """Per mixture SI-SNR in dB of each DSP output and of the mixture's mic
+    0: WPE against the direct-path mixture at mic 0, MVDR and mfMCWF
+    against ref1's mic-0 image."""
+    n = len(mix4)
+    dry = direct.sum(1)
+    img = images[:, 0, :, 0]
+    return {
+        "wpe_before": [si_snr_db(mix4[i, :, 0], dry[i]) for i in range(n)],
+        "wpe_after": [si_snr_db(outs["wpe"][i], dry[i]) for i in range(n)],
+        "ref1_before": [si_snr_db(mix4[i, :, 0], img[i]) for i in range(n)],
+        "mvdr_after": [si_snr_db(outs["mvdr"][i], img[i]) for i in range(n)],
+        "mfmcwf_after": [si_snr_db(outs["mfmcwf"][i], img[i])
+                         for i in range(n)]}
+
+
+def array_dsp_phase(torch, _cuda, data: dict, jref: dict, smi: str):
+    """Phase 41: the array DSP (no weights) over every mixture, in fp32 on
+    the card (timed) and the CPU, and in float64 on both. Each output of
+    the card is held to the CPU's within SEP_TOL of its largest sample in
+    float64. In fp32 it is held so too, or, where the systems' conditions
+    put both fp32 legs that far from the exact solve (WPE and mfMCWF:
+    conditions ~1e4-1e6), to within DSP_FP32_RATIO times the CPU fp32
+    leg's distance from the float64 run. Each mixture's SI-SNR is held
+    to within DSP_MARGIN of the JAX package's (``jref``)."""
+    import numpy as np
+    none = {n: 0 for n in _cuda.LAUNCHES}
+    mix4, images = data["mix4"], data["images"]
+    t0 = time.perf_counter()
+    _cuda.reset_launch_counts()
+    card = array_dsp(torch, mix4, images, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    conds = {}
+    cpu = array_dsp(torch, mix4, images, "cpu", conds=conds)
+    mix64, images64 = mix4.astype(np.float64), images.astype(np.float64)
+    card64 = array_dsp(torch, mix64, images64, "cuda")
+    cpu64 = array_dsp(torch, mix64, images64, "cpu")
+    figs = dsp_si_snrs(card, mix4, images, data["direct"])
+    jfigs = jref["si_snr"]
+    gaps = {k: float(np.max(np.abs(np.asarray(v) - jfigs[k][:len(v)])))
+            for k, v in figs.items()}
+
+    def dist(a, b):
+        return float(max(np.abs(a[i] - b[i]).max() / np.abs(b[i]).max()
+                         for i in range(len(b))))
+
+    errs = {k: dist(card[k], cpu[k]) for k in card}
+    errs64 = {k: dist(card64[k], cpu64[k]) for k in card}
+    f64 = {k: {"card": dist(card[k], cpu64[k]),
+               "cpu": dist(cpu[k], cpu64[k])} for k in card}
+    ratio = {k: f64[k]["card"] / f64[k]["cpu"] for k in card}
+    held = {k: errs64[k] <= SEP_TOL and (errs[k] <= SEP_TOL
+                                         or ratio[k] <= DSP_FP32_RATIO)
+            for k in card}
+    row = {"n_mixtures": len(mix4), "wall_seconds": wall,
+           "launches": launches,
+           "si_snr_mean": {k: float(np.mean(v)) for k, v in figs.items()},
+           "si_snri_mean": {
+               "wpe": float(np.mean(figs["wpe_after"])
+                            - np.mean(figs["wpe_before"])),
+               "mvdr": float(np.mean(figs["mvdr_after"])
+                             - np.mean(figs["ref1_before"])),
+               "mfmcwf": float(np.mean(figs["mfmcwf_after"])
+                               - np.mean(figs["ref1_before"]))},
+           "jax_si_snr_mean": {k: float(np.mean(v))
+                               for k, v in jfigs.items()},
+           "largest_db_from_jax": gaps, "margin_db": DSP_MARGIN,
+           "card_vs_cpu_rel_err": errs, "tol": SEP_TOL,
+           "float64_card_vs_cpu_rel_err": errs64,
+           "fp32_from_float64_rel_err": f64,
+           "card_over_cpu_from_float64": ratio,
+           "fp32_ratio_bound": DSP_FP32_RATIO,
+           "held": held, "cond_max_cpu": conds, "nvidia_smi": smi}
+    emit({"phase": "enh_array_dsp", **row})
+    if not (launches == none and max(gaps.values()) <= DSP_MARGIN
+            and all(held.values())):
+        raise AssertionError(f"array DSP: {row}")
+
+
+def card_batches(torch, _cuda, fn, n: int, batch: int = SEP_BATCH):
+    """fn(slice) -> a list over outputs of (b, L) numpy, over n inputs in
+    batches on the card after a warm-up batch, every launch count at 0
+    first. -> (outputs (S', n, L), wall seconds, launches, peak bytes)."""
+    import numpy as np
+    fn(slice(0, min(batch, n)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = np.concatenate([np.stack(fn(slice(b, min(b + batch, n))))
+                          for b in range(0, n, batch)], axis=1)
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, dict(_cuda.LAUNCHES),
+            torch.cuda.max_memory_allocated())
+
+
+def held_to_cpu_and_jax(card, cpu, jref) -> dict:
+    """card (S', N, L) against cpu (S', n, L), each estimate's largest
+    difference over the CPU's largest |sample|; and against the JAX
+    package's MC_WINDOW samples of the first n (``jref``: "window"
+    (S', n, W), "peak" (S', n)), over JAX's largest |sample|."""
+    import numpy as np
+    n = cpu.shape[1]
+    at, width = MC_WINDOW
+    jwin, jpeak = unpack(jref["window"]), unpack(jref["peak"])
+    return {
+        "card_vs_cpu_rel_err": float(max(
+            np.abs(card[s, i] - cpu[s, i]).max() / np.abs(cpu[s, i]).max()
+            for s in range(len(card)) for i in range(n))),
+        "card_vs_jax_rel_err": float(max(
+            np.abs(card[s, i, at:at + width] - jwin[s, i]).max()
+            / jpeak[s, i] for s in range(len(card)) for i in range(n))),
+        "peak_vs_jax_rel_err": float(np.max(np.abs(
+            np.abs(card[:, :n]).max(-1) - jpeak) / jpeak)),
+        "mixtures_against_cpu_and_jax": n, "tol": SEP_TOL}
+
+
+def separation_quality(est, refs) -> float:
+    """Mean SI-SNR over the mixtures: PIT over two estimates, else the
+    one estimate against ref1."""
+    import numpy as np
+    if len(est) == 1:
+        return float(np.mean([si_snr_db(est[0, i], refs[i][0])
+                              for i in range(est.shape[1])]))
+    return float(np.mean([pit_si_snr([e[i] for e in est], refs[i])
+                          for i in range(est.shape[1])]))
+
+
+def tse_model_dir(workdir: Path):
+    """config.yaml (EnhTSETask's defaults, TSEModel's at the TCN asset's
+    n_fft 512 and hop 128) and seed.npz (seed_flat over its tree,
+    SEP_SEED) under workdir/tse_model. -> (config, weights)."""
+    import numpy as np
+
+    from espnet_tpu_torch import convert
+    from espnet_tpu_torch.tasks.enh import EnhTSETask
+    from espnet_tpu_torch.utils.config import dump_yaml, resolve_config
+    d = workdir / "tse_model"
+    d.mkdir(parents=True, exist_ok=True)
+    cfg = resolve_config(EnhTSETask.default_config(), overrides={
+        "tse_conf": {"n_fft": 512, "hop_length": 128}})
+    dump_yaml(cfg, d / "config.yaml")
+    np.savez(d / "seed.npz", **seed_flat(
+        {k: v.shape for k, v in convert.state_dict_to_flax(
+            EnhTSETask.build_model(cfg)).items()}, SEP_SEED))
+    return d / "config.yaml", d / "seed.npz"
+
+
+def tse_config(workdir: Path, name: str, weights: Path):
+    """enh_tse_train's config over phase 21's data with its enrollments:
+    the TCN asset's optimizer, scheduler and batching, TSEModel at n_fft
+    512 and hop 128, TSE_STEPS steps at batch 8 from ``weights``, written
+    to workdir/name.yaml. -> (cfg, path)."""
+    from espnet_tpu_torch.tasks.enh import EnhTSETask
+    from espnet_tpu_torch.utils.config import (dump_yaml, load_yaml,
+                                               resolve_config)
+    asset = load_yaml(ENH / "config.yaml")
+    data = workdir / "enh_data"
+    triples = {split: [f"{data}/{split}/wav.scp,speech_mix,sound",
+                       f"{data}/{split}/enroll.scp,enroll_ref1,sound",
+                       f"{data}/{split}/spk1.scp,speech_ref1,sound"]
+               for split in ("train", "valid")}
+    cfg = resolve_config(EnhTSETask.default_config(), overrides={
+        **{k: asset[k] for k in ("seed", "batch_type", "sort_in_batch",
+                                 "optim", "optim_conf", "scheduler",
+                                 "scheduler_conf", "grad_clip")},
+        "tse_conf": {"n_fft": 512, "hop_length": 128},
+        "output_dir": str(workdir / name),
+        "train_data_path_and_name_and_type": triples["train"],
+        "valid_data_path_and_name_and_type": triples["valid"],
+        "train_shape_file": [f"{data}/train/speech_mix_shape"],
+        "valid_shape_file": [f"{data}/valid/speech_mix_shape"],
+        "init_param": str(weights), "batch_size": ENH_TRAIN_BATCH,
+        "max_epoch": 1, "num_iters_per_epoch": TSE_STEPS,
+        "log_interval": 1})
+    dump_yaml(cfg, workdir / f"{name}.yaml")
+    return cfg, workdir / f"{name}.yaml"
+
+
+def multichannel_phases(torch, _cuda, workdir: Path, smi: str):
+    """Phases 39-43: the time-domain separators (SVoice, FaSNet), the
+    multichannel ones (USES, USES2, TF-GridNetV2 / V3, iNeuBe, the MVDR
+    neural beamformer) on 4-channel reverberant mixtures, the array DSP
+    (WPE, oracle MVDR, oracle mfMCWF), target-speaker extraction and its
+    training, and the SVoice and TF-GridNetV2 training runs. No kernel of
+    the port lies on these paths: every phase counts none."""
+    import numpy as np
+
+    from espnet_tpu_torch.bin import enh_tse_train
+    from espnet_tpu_torch.bin.enh_inference import SeparateSpeech
+    from espnet_tpu_torch.bin.enh_tse_inference import ExtractSpeech
+    from espnet_tpu_torch.data.fileio import write_wav
+    from espnet_tpu_torch.data.synth_speech import FS, SynthMixCorpus
+    from espnet_tpu_torch.models.enh.tse import TSEModel
+    from espnet_tpu_torch.tasks.enh import EnhancementTask, EnhTSETask
+    from espnet_tpu_torch.train.checkpoint import load_checkpoint
+
+    ref = json.loads(MC_REFERENCE.read_text(encoding="utf-8"))
+    t0 = time.perf_counter()
+    data = multichannel_data()
+    data_s = time.perf_counter() - t0
+    for key in ("mixes", "mix4", "enroll"):
+        if not max(abs(a / b - 1) for a, b in zip(
+                energies(data[key]), ref["energy"][key])) <= 1e-6:
+            raise AssertionError(f"the {key} differ from the JAX reference's")
+    mixes, mix4 = data["mixes"], data["mix4"]
+    refs = [list(r) for r in data["refs"]]
+    refs4 = [list(r) for r in data["images"][:, :, :, 0]]
+    none = {n: 0 for n in _cuda.LAUNCHES}
+    emit({"phase": "multichannel_data", "n_mixtures": N_MIX,
+          "mics": N_MICS, "rir": {"samples": RIR_LEN, "rt60_s": RT60,
+                                  "max_delay": MAX_DELAY,
+                                  "tail_at": TAIL_AT,
+                                  "tail_gain": TAIL_GAIN},
+          "enroll_seconds": TSE_ENROLL_S, "seconds": data_s})
+
+    def forward_enhance(model, x, dev):
+        with torch.no_grad():
+            xt = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            ests, _, _ = model.forward_enhance(xt, torch.full(
+                (len(x),), x.shape[1], device=dev))
+        return [e.cpu().numpy() for e in ests]
+
+    def check(name, row, launches):
+        if not (row["finite"] and launches == none):
+            raise AssertionError(f"{name}: finite {row['finite']}, launches "
+                                 f"{launches}")
+        if not (row["card_vs_cpu_rel_err"] <= SEP_TOL
+                and row["card_vs_jax_rel_err"] <= SEP_TOL
+                and row["peak_vs_jax_rel_err"] <= SEP_TOL):
+            raise AssertionError(f"{name}: {row}")
+
+    def separate(phase, name, sep, conf, x, quality_refs, jref, through):
+        """One separator on the card over x in batches and on the CPU
+        over the first MC_CPU_MIX, through SeparateSpeech or the model's
+        forward_enhance; its phase line."""
+        cfg_path, weights = seed_model_dir(workdir, name, sep, conf)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            if through == "SeparateSpeech":
+                ss = SeparateSpeech(cfg_path, weights, fs=FS, device=dev)
+                runs[dev] = lambda sl, ss=ss: ss(x[sl])
+            else:
+                model = EnhancementTask.build_model_from_file(
+                    cfg_path, weights, dev)[0]
+                runs[dev] = lambda sl, m=model, d=dev: forward_enhance(
+                    m, x[sl], d)
+        card, wall, launches, peak = card_batches(torch, _cuda,
+                                                  runs["cuda"], len(x))
+        cpu = np.stack(runs["cpu"](slice(0, MC_CPU_MIX)))
+        del runs
+        row = {"name": name, "separator": sep, "separator_conf": conf,
+               "through": through, "input_shape": list(x.shape),
+               "shape": list(card.shape),
+               "finite": bool(np.isfinite(card).all()),
+               "si_snr_mean": separation_quality(card, quality_refs),
+               "jax_si_snr_first": jref["si_snr"],
+               "separated_audio_s_per_s": len(x) * x.shape[1] / FS / wall,
+               "wall_seconds": wall, "peak_memory_bytes": peak,
+               "launches": launches,
+               **held_to_cpu_and_jax(card, cpu, jref), "nvidia_smi": smi}
+        emit({"phase": phase, **row})
+        check(name, row, launches)
+        return row
+
+    # 39. SVoice and FaSNet through SeparateSpeech on the 50 test
+    # mixtures; FaSNet also through forward_enhance on their 4-channel
+    # versions
+    for name, sep, conf in TIME_DOMAIN_CASES:
+        separate("enh_time_domain", name, sep, conf, mixes, refs,
+                 ref["separators"][name], "SeparateSpeech")
+    separate("enh_time_domain", "fasnet_4ch", "fasnet", {}, mix4, refs4,
+             ref["separators"]["fasnet_4ch"], "forward_enhance")
+
+    # 40. the multichannel separators on the 4-channel mixtures (USES and
+    # TF-GridNetV3 on mic 0)
+    for name, sep, conf, channels in MULTICHANNEL_CASES:
+        x = mix4 if channels > 1 else np.ascontiguousarray(mix4[..., 0])
+        separate("enh_multichannel", name, sep, conf, x, refs4,
+                 ref["separators"][name], "forward_enhance")
+
+    # 41. the array DSP, no weights
+    array_dsp_phase(torch, _cuda, data, ref["dsp"], smi)
+
+    # 42. target-speaker extraction: ExtractSpeech on the 50 triples, then
+    # enh_tse_train over phase 21's mixtures with their enrollments
+    cfg_path, weights = tse_model_dir(workdir)
+    ex = {dev: ExtractSpeech(cfg_path, weights, device=dev)
+          for dev in ("cuda", "cpu")}
+    enroll = data["enroll"]
+    card, wall, launches, peak = card_batches(
+        torch, _cuda, lambda sl: [ex["cuda"](mixes[sl], enroll[sl])], N_MIX)
+    cpu = ex["cpu"](mixes[:MC_CPU_MIX], enroll[:MC_CPU_MIX])[None]
+    del ex
+    jref = ref["tse"]
+    row = {"name": "tse", "shape": list(card.shape),
+           "finite": bool(np.isfinite(card).all()),
+           "si_snr_mean": separation_quality(card, refs),
+           "jax_si_snr_first": jref["si_snr"],
+           "extracted_audio_s_per_s": N_MIX * mixes.shape[1] / FS / wall,
+           "wall_seconds": wall, "peak_memory_bytes": peak,
+           "launches": launches, **held_to_cpu_and_jax(card, cpu, jref)}
+    corpus = SynthMixCorpus(seconds=4.0)
+    for split, n in (("train", ENH_N_TRAIN), ("valid", ENH_N_VALID)):
+        d = workdir / "enh_data" / split
+        with open(d / "enroll.scp", "w") as f:
+            for i in range(n):
+                path = d / "wav" / f"{split}_{i:05d}_enroll.wav"
+                write_wav(path, FS, tse_enrollment(corpus, split, i))
+                f.write(f"{split}_{i:05d} {path}\n")
+    cfg, cfg_path_a = tse_config(workdir, "tse_a", weights)
+    trainer, per_step, launches_t, wall_t, peak_t = train_run(
+        torch, _cuda, enh_tse_train.main, cfg_path_a, TSEModel)
+    steps = trainer.step_stats
+    check_steps(steps, per_step, none, ("loss", "si_snr"),
+                n_steps=TSE_STEPS)
+    _, cfg_path_b = tse_config(workdir, "tse_b", weights)
+    enh_tse_train.main(["--config", str(cfg_path_b)])
+    first = load_checkpoint(workdir / "tse_a" / "checkpoint")[0]
+    again = load_checkpoint(workdir / "tse_b" / "checkpoint")[0]
+    differ = sorted(k for k in first if not np.array_equal(first[k],
+                                                           again[k]))
+    valid_if = EnhTSETask.build_iter_factory(cfg, train=False)
+    _, gbatch = valid_if.collate_fn([valid_if.dataset[k] for k in
+                                     valid_if.epoch_batches(0)[0]
+                                     [:GRAD_BATCH]])
+    gcheck = grad_check(torch, EnhTSETask, cfg_path, weights, gbatch)
+    step_ms = [1e3 * s["train_time"] for s in steps]
+    row["train"] = {
+        "batch_size": ENH_TRAIN_BATCH,
+        "steps": [{k: s[k] for k in ("loss", "si_snr", "grad_norm",
+                                     "skipped")} | {"ms": ms}
+                  for s, ms in zip(steps, step_ms)],
+        "step_ms_median": statistics.median(step_ms[1:] or step_ms),
+        "peak_memory_bytes": peak_t, "wall_seconds": wall_t,
+        "launches": launches_t,
+        "valid_after": trainer.reporter.stats[1]["valid"],
+        "rerun_n_differ": len(differ), "rerun_differs": differ[:5],
+        "grad_check": gcheck}
+    emit({"phase": "enh_tse", **row, "nvidia_smi": smi})
+    check("tse", row, launches)
+    if differ:
+        raise AssertionError(f"enh_tse_train: a second run differs in "
+                             f"{len(differ)} parameters, e.g. {differ[:3]}")
+
+    # 43. enh_train with SVoice and TF-GridNetV2 (its blocks checkpointed)
+    for sep, (n_steps, n_grad, samples) in SEP_TRAIN_2.items():
+        train_separator(torch, _cuda, workdir, smi, sep, {}, n_steps,
+                        "si_snr", n_grad, none, "enh_separator_train_2",
+                        grad_samples=samples)
 
 
 def lm_sentences(corpus, n: int = N_VALID_LM):
@@ -5212,6 +5817,10 @@ def run(torch, workdir: Path):
     # 36-38. the single-channel STFT separators and their training (on
     # phase 21's data)
     sep_paths = separator_phases(torch, _cuda, workdir, smi)
+
+    # 39-43. the time-domain and multichannel separators, the array DSP,
+    # target-speaker extraction, and SVoice and TF-GridNetV2 training
+    multichannel_phases(torch, _cuda, workdir, smi)
 
     # 24-26. the LM's perplexity, LM fusion and the VITS -> ASR round trip
     lm_decode_launches, tts_decode_launches = lm_tts_phases(

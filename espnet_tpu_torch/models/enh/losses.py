@@ -1,7 +1,8 @@
 """Enhancement losses and the permutation-invariant wrapper (counterpart
 of espnet_tpu/models/enh/losses.py): -SI-SNR, -SNR and L1 per batch
-element, and PIT as the least mean loss over every assignment of
-estimates to references. ``mixit_loss`` is not ported yet."""
+element, PIT as the least mean loss over every assignment of estimates
+to references, and MixIT's least loss over every assignment of estimated
+sources to two mixtures."""
 
 from __future__ import annotations
 
@@ -70,5 +71,31 @@ def pit_loss(loss_fn, ests, refs, lengths=None):
     losses = torch.stack([
         sum(loss_fn(ests[i], refs[p], lengths) for i, p in enumerate(perm))
         / n for perm in itertools.permutations(range(n))], dim=1)
+    best = torch.argmin(losses, dim=1)
+    return losses.gather(1, best[:, None])[:, 0], best
+
+
+def mixit_losses(loss_fn, ests, mixtures, lengths=None):
+    """ests, a list of M (B, S) estimates; mixtures, a list of two (B, S)
+    -> (B, 2^M): for each assignment in bit order (bit i set: source i
+    goes to mixture 1) the mean of the two mixtures' losses against their
+    summed sources."""
+    M = len(ests)
+    est = torch.stack(ests, dim=1)                       # (B, M, S)
+    losses = []
+    for bits in range(2 ** M):
+        sel = torch.tensor([(bits >> i) & 1 for i in range(M)],
+                           dtype=est.dtype, device=est.device)
+        mix1 = torch.einsum("m,bms->bs", sel, est)
+        mix0 = torch.einsum("m,bms->bs", 1.0 - sel, est)
+        losses.append((loss_fn(mix0, mixtures[0], lengths)
+                       + loss_fn(mix1, mixtures[1], lengths)) / 2.0)
+    return torch.stack(losses, dim=1)
+
+
+def mixit_loss(loss_fn, ests, mixtures, lengths=None):
+    """Mixture-invariant training -> (the least of ``mixit_losses`` (B,),
+    its assignment (B,)). Ties go to the first, as JAX's argmin."""
+    losses = mixit_losses(loss_fn, ests, mixtures, lengths)
     best = torch.argmin(losses, dim=1)
     return losses.gather(1, best[:, None])[:, 0], best

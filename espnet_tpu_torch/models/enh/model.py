@@ -14,10 +14,14 @@ k-means into binary masks. ``needs_ref_spectra`` separators (DAN) take
 the references' STFT magnitudes in training. ``loss_type: dpcl`` trains
 a DPCL embedding with the affinity loss instead of a signal criterion.
 The conv encoder takes only real-mask separators (ValueError otherwise,
-as in the JAX package). The JAX package's time-domain and multichannel
-separators raise NotImplementedError when built (ROADMAP A.4), so the
-model has no branch for them; a multichannel mixture goes through its
-channel 0, as in the JAX package.
+as in the JAX package).
+
+``time_domain`` separators (SVoice, FaSNet, the neural beamformer) take
+the raw (B, S) or (B, S, C) wave and give the estimates themselves. A
+(B, S, C) mixture reaches a ``multichannel_input`` separator as the
+STFT of every channel, (B, T, F, C); any other separator gets channel
+0. Masks and complex masks of a multichannel separator apply to its
+``ref_channel``'s spectrum.
 
 The conv encoder's ``basis`` is a torch ConvTranspose1d, which adds
 x[t] w[k] at t * stride + k; flax's ConvTranspose (transpose_kernel
@@ -36,7 +40,7 @@ from torch import nn
 from espnet_tpu_torch.models.enh.losses import CRITERIA, pit_loss
 from espnet_tpu_torch.models.enh.separators import (SEPARATORS, dpcl_loss,
                                                     kmeans_tf_bins)
-from espnet_tpu_torch.ops.stft import istft, stft
+from espnet_tpu_torch.ops.stft import istft, stft, stft_channels
 
 
 class EnhancementModel(nn.Module):
@@ -87,13 +91,22 @@ class EnhancementModel(nn.Module):
         ``refs`` (a list of (B, S) references) reach a
         ``needs_ref_spectra`` separator as STFT magnitudes; without them
         it takes its inference route."""
-        if speech_mix.dim() == 3:
+        sep = self.separator_mod
+        if getattr(sep, "time_domain", False):
+            return sep(speech_mix, speech_lengths), speech_lengths, None
+        if speech_mix.dim() == 3 and not getattr(sep, "multichannel_input",
+                                                 False):
             speech_mix = speech_mix[..., 0]
         if self.encoder == "conv":
             return self._enhance_time_domain(speech_mix, speech_lengths)
-        real, imag, _ = stft(speech_mix, speech_lengths, n_fft=self.n_fft,
-                             hop_length=self.hop_length)
-        sep = self.separator_mod
+        if speech_mix.dim() == 3:
+            real, imag = stft_channels(speech_mix, n_fft=self.n_fft,
+                                       hop_length=self.hop_length)
+            speech_mix = speech_mix[..., 0]
+        else:
+            real, imag, _ = stft(speech_mix, speech_lengths,
+                                 n_fft=self.n_fft,
+                                 hop_length=self.hop_length)
         if getattr(sep, "complex_input", False):
             feats = (real, imag)
         else:
@@ -103,6 +116,9 @@ class EnhancementModel(nn.Module):
             kw["refs_mag"] = [self._ref_mag(r) for r in refs]
         masks = sep(feats, **kw)
         out_kind = getattr(sep, "output", "mask")
+        if real.dim() == 4:
+            ref = getattr(sep, "ref_channel", 0)
+            real, imag = real[..., ref], imag[..., ref]
         if out_kind == "dpcl":
             # the bins' embedding clustered into binary masks
             B, T, Fq, D = masks.shape

@@ -57,15 +57,18 @@ class LSTMCell(nn.Module):
     def forward(self, carry, x_proj, hidden_kernel=None):
         """carry (c, h), x_proj = input_proj(x) -> (c', h'): one addmm
         and one sigmoid over the four gates. A caller that steps many
-        times passes ``hidden_kernel()`` once."""
+        times passes ``hidden_kernel()`` once. Several cells step in
+        lockstep as one: (K, B, H) carries, (K, B, 4H) projections and
+        their (K, H, 4H) hidden kernels stacked take one baddbmm."""
         c, h = carry
         wt = self.hidden_kernel() if hidden_kernel is None else hidden_kernel
-        z = torch.addmm(x_proj, h, wt)
+        z = (torch.baddbmm(x_proj, h, wt) if h.dim() == 3
+             else torch.addmm(x_proj, h, wt))
         H = c.shape[-1]
         gates = torch.sigmoid(z)
-        c = gates[:, H:2 * H] * c + gates[:, :H] * torch.tanh(
-            z[:, 2 * H:3 * H])
-        return c, gates[:, 3 * H:] * torch.tanh(c)
+        c = gates[..., H:2 * H] * c + gates[..., :H] * torch.tanh(
+            z[..., 2 * H:3 * H])
+        return c, gates[..., 3 * H:] * torch.tanh(c)
 
 
 class RNNDecoder(nn.Module):

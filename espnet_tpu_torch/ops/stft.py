@@ -91,6 +91,16 @@ def stft(x: torch.Tensor, ilens: torch.Tensor | None = None, *,
     return spec[..., :n_freq], spec[..., n_freq:], olens
 
 
+def stft_channels(x: torch.Tensor, **kw):
+    """(B, S, C) -> real, imag (B, T, F, C): every channel's STFT, the
+    channels as one (B C, S) batch."""
+    B, S, C = x.shape
+    real, imag, _ = stft(x.transpose(1, 2).reshape(B * C, S), None, **kw)
+    T, Fq = real.shape[1:]
+    return (real.reshape(B, C, T, Fq).permute(0, 2, 3, 1),
+            imag.reshape(B, C, T, Fq).permute(0, 2, 3, 1))
+
+
 def stft_power(x, ilens=None, **kw):
     """|STFT|^2: (B, S) -> (B, T, F), olens."""
     real, imag, olens = stft(x, ilens, **kw)

@@ -1,9 +1,10 @@
 """Enhancement tasks (counterpart of espnet_tpu/tasks/enh.py):
-``EnhancementTask`` (separation, trained with PIT) and ``EnhS2TTask``
-(joint enhancement + ASR), on the training spine of
-``tasks/abs_task.py``; ``build_model_from_file`` is AbsTask's.
+``EnhancementTask`` (separation, trained with PIT), ``EnhS2TTask``
+(joint enhancement + ASR) and ``EnhTSETask`` (target-speaker
+extraction), on the training spine of ``tasks/abs_task.py``;
+``build_model_from_file`` is AbsTask's.
 
-Both build their models in fp32 with deterministic cuDNN
+All three build their models in fp32 with deterministic cuDNN
 (``tasks/asr.py:fp32_and_deterministic``): cuDNN's default TF32 would put
 the TCN's pointwise and depthwise convolutions ~1e-3 off the CPU, and its
 fastest weight-gradient algorithms add in an order that changes between
@@ -161,4 +162,34 @@ class EnhS2TTask(AbsTask):
             "speech_mix_lengths": np.asarray([2048], np.int32),
             "text": np.zeros((1, 8), np.int32),
             "text_lengths": np.asarray([8], np.int32),
+        }
+
+
+class EnhTSETask(AbsTask):
+    """Target-speaker extraction: ``tse_conf`` holds TSEModel's fields;
+    the data are the mixture ``speech_mix``, an enrollment utterance of
+    the target speaker ``enroll_ref1`` and the target ``speech_ref1``."""
+
+    name = "enh_tse"
+
+    @classmethod
+    def task_defaults(cls) -> Dict[str, Any]:
+        return {
+            "tse_conf": {},
+            "use_preprocessor": False,
+        }
+
+    @classmethod
+    def build_model(cls, cfg: Dict[str, Any]):
+        from espnet_tpu_torch.models.enh.tse import TSEModel
+        fp32_and_deterministic()
+        return TSEModel(**dict(cfg.get("tse_conf") or {}))
+
+    @classmethod
+    def example_batch(cls, cfg: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        return {
+            "speech_mix": np.zeros((1, 2048), np.float32),
+            "speech_mix_lengths": np.asarray([2048], np.int32),
+            "enroll_ref1": np.zeros((1, 1024), np.float32),
+            "speech_ref1": np.zeros((1, 2048), np.float32),
         }

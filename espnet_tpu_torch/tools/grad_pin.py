@@ -27,9 +27,11 @@ import torch
 import torch.nn.functional as F
 
 from espnet_tpu_torch.models.enh.separators import (ConformerSeparator,
+                                                    SVoiceSeparator,
                                                     TCNBlock, TCNSeparator,
                                                     TFGridNetSeparator,
-                                                    TransformerSeparator)
+                                                    TransformerSeparator,
+                                                    _GridBlockV2)
 from espnet_tpu_torch.models.spk import (EcapaEncoder, SERes2NetBlock,
                                           SkaTdnnEncoder)
 from espnet_tpu_torch.models.tts.fastspeech2 import VariancePredictor
@@ -54,7 +56,9 @@ def relu_inputs(model) -> dict:
     PReLU before the masks) and the mask convolution of ReLU masks; the
     mask heads of the Conformer and Transformer separators' ReLU masks
     (and the Transformer's linear input, a ReLU after its LayerNorm);
-    TF-GridNet's attention projections (each into a PReLU); each
+    TF-GridNet's and each TF-GridNetV2 block's attention projections
+    (each into a PReLU); SVoice's encoder (into a ReLU) and its last
+    block's LayerNorm (into the PReLU before the speakers' head); each
     convolution of a variance (duration) predictor; in a speaker
     encoder (ECAPA, SKA-TDNN) the input normalisation and the output
     convolution, and in each SE-Res2Net block both normalisations and the
@@ -87,7 +91,11 @@ def relu_inputs(model) -> dict:
                             for s in range(m.num_spk)})
             if isinstance(m, TransformerSeparator):
                 out[f"{name}.enc.embed_norm"] = m.enc.embed_norm
-        elif isinstance(m, TFGridNetSeparator):
+        elif isinstance(m, SVoiceSeparator):
+            last = f"norm_o{m.num_layers - 1}"
+            out.update({f"{name}.encoder": m.encoder,
+                        f"{name}.{last}": getattr(m, last)})
+        elif isinstance(m, (TFGridNetSeparator, _GridBlockV2)):
             out.update({f"{name}.{c}": sub
                         for c, sub in m.named_children()
                         if c.startswith("attn") and c[4] in "QKVO"

@@ -1,23 +1,25 @@
 #!/usr/bin/env python3
-"""How far fp32 rounding alone moves TF-GridNet's worst gradient in
-chip_smoke.py's grad check.
+"""How far fp32 rounding alone moves TF-GridNet's (or TF-GridNetV2's)
+worst gradient in chip_smoke.py's grad check.
 
-chip_smoke.py's phase 38 trains TF-GridNet from seed_flat's weights; its
-grad check would hold one backward on the first valid batch against a
-float64 backward on the CPU that takes the fp32 leg's ReLU sides
-(tools/grad_pin.py), each parameter within 1e-3 of its scale. The worst
-parameters are the Q- and K-branch PReLU slopes of block 1, head 1
-(``PReLU_10``, ``PReLU_11``): each gradient is the sum over the negative
-inputs x of x * dy, whose terms cancel. This script measures each sum's
-condition number (the terms' absolute sum over the sum's magnitude, in
-float64) and each slope's ratio
-for fp32 legs that differ only in their rounding: the port as it is,
-and with one part of the separator run in float64 (the PReLUs, the
-norms over (F, channel), the frame attention or its scores, softmax or
-product with the values alone, the LSTMs, or several).
+chip_smoke.py's phases 38 and 43 train TF-GridNet and TF-GridNetV2 from
+seed_flat's weights; a grad check would hold one backward on the first
+valid batch against a float64 backward on the CPU that takes the fp32
+leg's ReLU sides (tools/grad_pin.py), each parameter within 1e-3 of its
+scale. For TF-GridNet the worst parameters are the Q- and K-branch PReLU
+slopes of block 1, head 1 (``PReLU_10``, ``PReLU_11``): each gradient is
+the sum over the negative inputs x of x * dy, whose terms cancel. This
+script measures each such sum's condition number (the terms' absolute
+sum over the sum's magnitude, in float64) and, for every leg, the worst
+parameters' distances from the float64 backward, the fp32 leg's worst
+among them, for fp32 legs that differ only in their rounding: the port
+as it is, and with one part of the separator run in float64 (the
+PReLUs, the norms over (F, channel), the frame attention or its scores,
+softmax or product with the values alone, the LSTMs, or several).
 
     python scripts/tfgridnet_grad_conditioning.py [--device cpu|cuda] \\
-        [--batch 1] [--legs fp32 attention64 ...] [--out FILE.jsonl]
+        [--separator tfgridnet|tfgridnetv2] [--batch 1] \\
+        [--legs fp32 attention64 ...] [--out FILE.jsonl]
 
 Run from the repository root; it writes its data and a seed model under
 $TMPDIR. One JSON line per leg.
@@ -45,7 +47,8 @@ from espnet_tpu_torch.tasks.enh import EnhancementTask  # noqa: E402
 from espnet_tpu_torch.tools import grad_pin  # noqa: E402
 from espnet_tpu_torch.train.trainer import to_device  # noqa: E402
 
-SLOPES = ("PReLU_10", "PReLU_11")     # block 1, head 1: Q and K branches
+# TF-GridNet's block 1, head 1: Q and K branches
+SLOPES = {"tfgridnet": ("PReLU_10", "PReLU_11"), "tfgridnetv2": ()}
 
 
 def prelu64(self, x):
@@ -55,7 +58,7 @@ def prelu64(self, x):
 
 def norm64(self, x):
     xd = x.double()
-    var, mean = torch.var_mean(xd, dim=(-2, -1), unbiased=False,
+    var, mean = torch.var_mean(xd, dim=self.dims, unbiased=False,
                                keepdim=True)
     return ((xd - mean) * torch.rsqrt(var + self.eps) * self.weight.double()
             + self.bias.double()).to(x.dtype)
@@ -81,24 +84,33 @@ def values64(q, k, v, temperature):
     return (p.double() @ v.double()).float()
 
 
-def lstm64(cell, x, carry=None, reverse=False):
-    """separators.lstm_scan from a zero carry, in float64."""
-    B, T, _ = x.shape
-    w = torch.cat([getattr(cell, f"i{g}").weight for g in cell.GATES])
-    b = torch.cat([getattr(cell, f"h{g}").bias for g in cell.GATES])
-    wt = cell.hidden_kernel().double()
-    proj = (x.double() @ w.double().t() + b.double()).unbind(1)
-    c = h = x.new_zeros(B, wt.shape[0], dtype=torch.float64)
-    out = [None] * T
-    for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        c, h = cell((c, h), proj[t], wt)
-        out[t] = h
-    return torch.stack(out, dim=1).to(x.dtype), (c.to(x.dtype),
-                                                 h.to(x.dtype))
+def lstm64(cells, xs, reverse=None, carry=None):
+    """separators.lstm_scans in float64, one cell after another."""
+    reverse = reverse or (False,) * len(cells)
+    outs, cs, hs = [], [], []
+    for k, (cell, x, r) in enumerate(zip(cells, xs, reverse)):
+        w = torch.cat([getattr(cell, f"i{g}").weight for g in cell.GATES])
+        b = torch.cat([getattr(cell, f"h{g}").bias for g in cell.GATES])
+        wt = cell.hidden_kernel().double()
+        proj = (x.double() @ w.double().t() + b.double()).unbind(1)
+        B, T, _ = x.shape
+        c, h = ((carry[0][k].double(), carry[1][k].double())
+                if carry is not None else
+                (x.new_zeros(B, wt.shape[0], dtype=torch.float64),) * 2)
+        out = [None] * T
+        for t in (range(T - 1, -1, -1) if r else range(T)):
+            c, h = cell((c, h), proj[t], wt)
+            out[t] = h
+        outs.append(torch.stack(out, dim=1))
+        cs.append(c)
+        hs.append(h)
+    dt = xs[0].dtype
+    return torch.stack(outs).to(dt), (torch.stack(cs).to(dt),
+                                      torch.stack(hs).to(dt))
 
 
 ORIGINAL = {"prelu": S.PReLU.forward, "norm": S.TwoAxisLayerNorm.forward,
-            "attention": S.frame_attention, "lstm": S.lstm_scan}
+            "attention": S.frame_attention, "lstm": S.lstm_scans}
 FLOAT64 = {"prelu": prelu64, "norm": norm64, "attention": attention64,
            "scores": scores64, "softmax": softmax64, "values": values64,
            "lstm": lstm64}
@@ -118,11 +130,11 @@ def use(parts):
         else ORIGINAL["norm"]
     S.frame_attention = next((FLOAT64[a] for a in ATTENTION_PARTS
                               if a in parts), ORIGINAL["attention"])
-    S.lstm_scan = FLOAT64["lstm"] if "lstm" in parts else ORIGINAL["lstm"]
+    S.lstm_scans = FLOAT64["lstm"] if "lstm" in parts else ORIGINAL["lstm"]
 
 
 def backward(cfg, weights, batch, device, parts, signs, moved,
-             float64=False, terms=None):
+             float64=False, terms=None, slopes=()):
     """One pinned backward -> (loss, {flax name: gradient})."""
     use(parts)
     m, _ = EnhancementTask.build_model_from_file(cfg, weights, device)
@@ -139,7 +151,7 @@ def backward(cfg, weights, batch, device, parts, signs, moved,
                     "n_negative": int((neg < 0).sum())}))
             return hook
         hooks += [getattr(m.separator_mod, n).register_forward_hook(note(n))
-                  for n in SLOPES]
+                  for n in slopes]
     loss, _, _ = m(**to_device(batch, device))
     loss.backward()
     for h in hooks:
@@ -151,18 +163,21 @@ def backward(cfg, weights, batch, device, parts, signs, moved,
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cpu")
+    ap.add_argument("--separator", default="tfgridnet",
+                    choices=list(SLOPES))
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--legs", nargs="*", default=list(LEGS),
                     choices=list(LEGS))
     ap.add_argument("--out")
     args = ap.parse_args()
-    work = Path(tempfile.mkdtemp(prefix="tfgridnet_grad_"))
-    cfg, weights = cs.seed_model_dir(work, "tfgridnet_train", "tfgridnet",
-                                     {}, loss_type="si_snr")
+    sep, slopes = args.separator, SLOPES[args.separator]
+    work = Path(tempfile.mkdtemp(prefix=f"{sep}_grad_"))
+    cfg, weights = cs.seed_model_dir(work, f"{sep}_train", sep, {},
+                                     loss_type="si_snr")
     SynthMixCorpus(seconds=4.0).materialize(
         work / "enh_data", n_train=cs.ENH_N_TRAIN, n_valid=cs.ENH_N_VALID,
         n_test=0)
-    ecfg, _ = cs.enh_config(work, "grad", separator="tfgridnet",
+    ecfg, _ = cs.enh_config(work, "grad", separator=sep,
                             separator_conf={}, loss_type="si_snr",
                             init_param=str(weights))
     valid_if = EnhancementTask.build_iter_factory(ecfg, train=False)
@@ -174,8 +189,9 @@ def main():
     first = backward(cfg, weights, batch, args.device, (), signs, None)
     moved = {}
     loss64, ref = backward(cfg, weights, batch, "cpu", (), signs, moved,
-                           float64=True, terms=terms)
+                           float64=True, terms=terms, slopes=slopes)
     top = max(float(abs(g).max()) for g in ref.values())
+    watch = None
     for name in args.legs:
         parts = LEGS[name]
         try:
@@ -192,15 +208,17 @@ def main():
                   / max(float(abs(g).max()), 1e-4 * top)
                   for n, g in ref.items()}
         worst = sorted(ratios, key=ratios.get, reverse=True)[:3]
-        row = {"leg": name, "float64_parts": list(parts),
+        watch = watch or worst[0]
+        row = {"leg": name, "separator": sep, "float64_parts": list(parts),
                "device": args.device, "batch": args.batch, "loss": loss,
                "loss_float64": loss64,
                "worst": [[n, ratios[n]] for n in worst],
+               "first_legs_worst": [watch, ratios[watch]],
                "slopes": {n: {
                    "ratio": ratios[f"params/separator_mod/{n}/"
                                    "negative_slope"],
                    "condition": terms[n]["abs_sum"] / abs(terms[n]["sum"]),
-                   "float64_terms": terms[n]} for n in SLOPES},
+                   "float64_terms": terms[n]} for n in slopes},
                "float64_pins_moved": moved,
                "seconds": time.perf_counter() - t0}
         print(json.dumps(row), flush=True)

@@ -130,13 +130,15 @@ def test_separator_estimates_loss_and_every_gradient_match_jax(
 
 
 def test_registry_follows_jax_and_defers_the_rest():
-    # every name of the JAX registry, in its order; the deferred ones
-    # raise naming ROADMAP A.4
+    # every name of the JAX registry, in its order; each builds in the
+    # model but asteroid, whose stub raises naming the missing package
     assert list(separators.SEPARATORS) == list(jax_separators.SEPARATORS)
-    for name in ("svoice", "fasnet", "uses", "uses2", "tfgridnetv2",
-                 "tfgridnetv3", "ineube", "neural_beamformer", "asteroid"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-            EnhancementModel(separator=name)
+    for name in separators.SEPARATORS:
+        if name == "asteroid":
+            with pytest.raises(ImportError, match="`asteroid` package"):
+                EnhancementModel(separator=name)
+        else:
+            EnhancementModel(separator=name, n_fft=128, hop_length=64)
 
 
 # ---- layouts ----------------------------------------------------------------
@@ -235,11 +237,14 @@ def test_flax_self_attention_layout():
 
 def test_entry_points_need_a_card_or_the_cpu(tmp_path):
     # SeparateSpeech and enh_train with a new separator (a small
-    # Conformer, the attention kernels' path): without a card each raises
-    # unless the CPU is asked for; on the CPU the model separates, and
-    # the entry point takes a training step
-    from espnet_tpu_torch.bin import enh_train
+    # Conformer, the attention kernels' path), ExtractSpeech and
+    # enh_tse_train: without a card each raises unless the CPU is asked
+    # for; on the CPU the model separates, and the entry point takes a
+    # training step (tests/test_torch_enh_tse.py trains and extracts on
+    # the CPU)
+    from espnet_tpu_torch.bin import enh_train, enh_tse_train
     from espnet_tpu_torch.bin.enh_inference import SeparateSpeech
+    from espnet_tpu_torch.bin.enh_tse_inference import ExtractSpeech
     from espnet_tpu_torch.data.synth_speech import SynthMixCorpus
     from espnet_tpu_torch.utils.config import dump_yaml
     if torch.cuda.is_available():
@@ -263,6 +268,15 @@ def test_entry_points_need_a_card_or_the_cpu(tmp_path):
         SeparateSpeech(tmp_path / "config.yaml", tmp_path / "seed.npz")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         enh_train.main(["--config", str(tmp_path / "config.yaml")])
+    dump_yaml({"tse_conf": {"n_fft": 128, "hop_length": 64, "hidden": 8,
+                            "num_layers": 1, "emb_dim": 4},
+               "output_dir": str(tmp_path / "tse")}, tmp_path / "tse.yaml")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ExtractSpeech(tmp_path / "tse.yaml", None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        enh_tse_train.main(["--config", str(tmp_path / "tse.yaml")])
+    assert ExtractSpeech(tmp_path / "tse.yaml", None,
+                         device="cpu").device.type == "cpu"
     sep = SeparateSpeech(tmp_path / "config.yaml", tmp_path / "seed.npz",
                          device="cpu")
     ests = sep(np.random.RandomState(1).randn(2, 900).astype(np.float32))

@@ -1272,15 +1272,9 @@ def test_spk_and_cls_training_on_the_card_repeats_itself_bit_for_bit(
                                       err_msg=name)
 
 
-def _seeded_separator(sep, seed=0):
-    """The TCN asset's config with ``sep`` at its default width, and the
-    weights of its parameter tree from RandomState(seed) at init scale
-    (chip_smoke.seed_flat's rule)."""
-    from espnet_tpu_torch.tasks.enh import EnhancementTask
-    from espnet_tpu_torch.utils.config import load_yaml
-    cfg = dict(load_yaml(ENH / "config.yaml"), separator=sep,
-               separator_conf={})
-    model = EnhancementTask.build_model(cfg)
+def _seeded_flat(model, seed=0):
+    """The weights of ``model``'s parameter tree from RandomState(seed) at
+    init scale (chip_smoke.seed_flat's rule)."""
     rng = np.random.RandomState(seed)
     flat = {}
     for key, value in sorted(convert.state_dict_to_flax(model).items()):
@@ -1289,12 +1283,23 @@ def _seeded_separator(sep, seed=0):
         x = (x / np.sqrt(np.prod(value.shape[:-1])) if name == "kernel"
              else 1.0 + 0.05 * x if name == "scale" else 0.05 * x)
         flat[key] = np.asarray(x, np.float32)
-    return cfg, flat
+    return flat
+
+
+def _seeded_separator(sep, seed=0, conf=None):
+    """The TCN asset's config with ``sep`` at its default width (``conf``
+    over it), and ``_seeded_flat``'s weights of its parameter tree."""
+    from espnet_tpu_torch.tasks.enh import EnhancementTask
+    from espnet_tpu_torch.utils.config import load_yaml
+    cfg = dict(load_yaml(ENH / "config.yaml"), separator=sep,
+               separator_conf=dict(conf or {}))
+    return cfg, _seeded_flat(EnhancementTask.build_model(cfg), seed)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("sep,n_mix,seconds", [("conformer", 2, 4.0),
-                                               ("tfgridnet", 1, 1.0)])
+                                               ("tfgridnet", 1, 1.0),
+                                               ("tfgridnetv2", 1, 1.0)])
 def test_separator_on_the_card_matches_the_cpu(sep, n_mix, seconds):
     # the separator at its default width on test mixtures: the estimates
     # within 1e-4 of their largest sample on the card and on the CPU, the
@@ -1348,3 +1353,95 @@ def test_separator_on_the_card_matches_the_cpu(sep, n_mix, seconds):
     for name, g in grads["cpu"].items():
         scale = max(float(np.abs(g).max()), 1e-4 * top)
         assert np.abs(grads["cuda"][name] - g).max() <= 1e-3 * scale, name
+
+
+# one case per family of the time-domain and multichannel separators, at
+# the default width (the mic count where a separator sizes by it): name,
+# separator, conf, channels
+MULTICHANNEL = [("svoice", "svoice", {}, 1), ("fasnet", "fasnet", {}, 4),
+                ("uses", "uses", {}, 1), ("uses2", "uses2", {}, 4),
+                ("tfgridnetv2", "tfgridnetv2", {"n_imics": 4}, 4),
+                ("tfgridnetv3", "tfgridnetv3", {}, 1),
+                ("ineube", "ineube", {"mic_channels": 4}, 4),
+                ("neural_beamformer", "neural_beamformer", {}, 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,sep,conf,channels", MULTICHANNEL,
+                         ids=[c[0] for c in MULTICHANNEL])
+def test_multichannel_separator_on_the_card_matches_the_cpu(name, sep, conf,
+                                                           channels):
+    # two 1 s mixtures (four channels: chip_smoke's reverberant version,
+    # a seeded room response per source and mic): the estimates within
+    # 1e-4 of their largest sample on the card and on the CPU, the same
+    # bits twice on the card, no kernel launched
+    _cuda_or_skip()
+    from chip_smoke import reverb_mixture
+    from espnet_tpu_torch.data.synth_speech import SynthMixCorpus
+    from espnet_tpu_torch.tasks.enh import EnhancementTask
+    cfg, flat = _seeded_separator(sep, conf=conf)
+    corpus = SynthMixCorpus(seconds=1.0)
+    triples = [corpus.mixture("test", i) for i in range(2)]
+    mix = np.stack([reverb_mixture(*tr, i)[0] if channels > 1 else tr[0]
+                    for i, tr in enumerate(triples)])
+    ests = {}
+    for dev in ("cuda", "cpu"):
+        model = convert.load_flax_params(EnhancementTask.build_model(cfg),
+                                         flat).to(dev).eval()
+        x = torch.from_numpy(mix).to(dev)
+        n = torch.full((2,), mix.shape[1], device=dev)
+        _cuda.reset_launch_counts()
+        with torch.no_grad():
+            ests[dev] = [e.cpu() for e in model.forward_enhance(x, n)[0]]
+            if dev == "cuda":
+                again = model.forward_enhance(x, n)[0]
+                assert all(torch.equal(a.cpu(), b)
+                           for a, b in zip(again, ests[dev]))
+                assert not any(_cuda.LAUNCHES.values())
+    for a, b in zip(ests["cuda"], ests["cpu"]):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+@pytest.mark.gpu
+def test_tse_training_on_the_card_repeats_itself_bit_for_bit(tmp_path):
+    # two 3-step enh_tse_train runs of a TSE model at its default width
+    # from one seed end with the same parameters
+    _cuda_or_skip()
+    from espnet_tpu_torch.bin import enh_tse_train
+    from espnet_tpu_torch.data.fileio import write_wav
+    from espnet_tpu_torch.data.synth_speech import SynthMixCorpus
+    from espnet_tpu_torch.tasks.enh import EnhTSETask
+    from espnet_tpu_torch.train.checkpoint import load_checkpoint
+    from espnet_tpu_torch.utils.config import dump_yaml
+    SynthMixCorpus(seconds=1.0).materialize(tmp_path / "data", n_train=6,
+                                            n_valid=0, n_test=0)
+    d = tmp_path / "data" / "train"
+    base = SynthMixCorpus().base
+    with open(d / "enroll.scp", "w") as f:
+        for i in range(6):
+            w = base.utterance("enroll-test", i)[0][:12000]
+            write_wav(d / f"enroll{i}.wav", 16000, w)
+            f.write(f"train_{i:05d} {d / f'enroll{i}.wav'}\n")
+    cfg = {"tse_conf": {"n_fft": 512, "hop_length": 128}, "seed": 3,
+           "max_epoch": 3, "num_iters_per_epoch": 1,
+           "batch_type": "sorted", "batch_size": 3, "optim": "adam",
+           "optim_conf": {"lr": 0.002},
+           "init_param": str(tmp_path / "seed.npz"),
+           "train_data_path_and_name_and_type": [
+               f"{d}/wav.scp,speech_mix,sound",
+               f"{d}/enroll.scp,enroll_ref1,sound",
+               f"{d}/spk1.scp,speech_ref1,sound"]}
+    np.savez(tmp_path / "seed.npz",
+             **_seeded_flat(EnhTSETask.build_model(cfg)))
+    dump_yaml(cfg, tmp_path / "tse.yaml")
+
+    def train(name):
+        enh_tse_train.main(["--config", str(tmp_path / "tse.yaml"),
+                            "--output_dir", str(tmp_path / name)])
+        return load_checkpoint(tmp_path / name / "checkpoint")[0]
+
+    ref, other = train("a"), train("b")
+    assert sorted(other) == sorted(ref)
+    for name in ref:
+        np.testing.assert_array_equal(other[name], ref[name], err_msg=name)

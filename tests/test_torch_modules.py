@@ -290,12 +290,20 @@ def test_ctc_greedy():
     np.testing.assert_array_equal(ttokens.numpy(), np.asarray(tokens))
 
 
-@pytest.mark.parametrize("ctc_weight", [0.3, 0.0])
-def test_beam_search_matches_jax(small, ctc_weight):
-    jmodel, params, tmodel = small
+@pytest.fixture(scope="module")
+def beam_encoded(small):
+    """The JAX encoder's output on the beam search's three utterances,
+    compiled once for both of its cases."""
+    jmodel, params, _ = small
     x, lens = _speech(np.random.RandomState(10), [6000, 3000, 4500])
-    enc, enc_lens = jmodel.apply(params, jnp.asarray(x), jnp.asarray(lens),
-                                 method=jmodel.encode)
+    return _jit(jmodel, jmodel.encode)(params, jnp.asarray(x),
+                                       jnp.asarray(lens))
+
+
+@pytest.mark.parametrize("ctc_weight", [0.3, 0.0])
+def test_beam_search_matches_jax(small, beam_encoded, ctc_weight):
+    jmodel, params, tmodel = small
+    enc, enc_lens = beam_encoded
     ref = jax_batch_beam_search(
         jmodel, params, enc, enc_lens,
         JaxBeamSearchConfig(beam_size=4, ctc_weight=ctc_weight, nbest=2))

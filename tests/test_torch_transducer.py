@@ -349,13 +349,24 @@ def test_small_transducer_loss_and_every_gradient(small, record_property):
     record_property("max_rel_err:gradients", worst)
 
 
+@pytest.fixture(scope="module")
+def small_encoded(small):
+    """The small JAX transducer's encoder output on ``_batch()``, compiled
+    once for both search types."""
+    _, jmodel, params, _, _ = small
+    batch = _batch()
+    return jax.jit(lambda p, x, n: jmodel.apply(p, x, n,
+                                                method=jmodel.encode))(
+        params, jnp.asarray(batch["speech"]),
+        jnp.asarray(batch["speech_lengths"]))
+
+
 @pytest.mark.parametrize("search_type", ["greedy", "default"])
-def test_small_transducer_hypotheses_match_jax(small, search_type):
+def test_small_transducer_hypotheses_match_jax(small, small_encoded,
+                                               search_type):
     cfg, jmodel, params, flat, model = small
     batch = _batch()
-    jenc, jlens = jmodel.apply(params, jnp.asarray(batch["speech"]),
-                               jnp.asarray(batch["speech_lengths"]),
-                               method=jmodel.encode)
+    jenc, jlens = small_encoded
     ref = jax_decode_transducer(jmodel, params, jenc, jlens,
                                 JaxSearchConfig(beam_size=5, nbest=3,
                                                 search_type=search_type))

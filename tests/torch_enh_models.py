@@ -52,7 +52,7 @@ def leaves(masks):
     """A separator's outputs as a flat list of arrays: masks, or each
     speaker's (real, imag) pair."""
     out = []
-    for m in masks:
+    for m in masks or []:
         out.extend(m if isinstance(m, (tuple, list)) else [m])
     return [np.asarray(x.detach() if isinstance(x, torch.Tensor) else x)
             for x in out]
@@ -77,20 +77,28 @@ def seeded(shapes: dict, seed: int) -> dict:
     return flat
 
 
-def models(sep, conf, seed=0, B=2, S=1000, **model_kw):
+def models(sep, conf, seed=0, B=2, S=1000, channels=None, **model_kw):
     """The JAX and port models of one separator (n_fft 128, hop 64, two
-    speakers) with the same weights, and a batch: mixtures of two
-    references, ragged lengths. -> (JAX module, its tree, the flat
-    weights, the port's model, the batch)."""
+    speakers unless ``num_spk`` says otherwise) with the same weights,
+    and a batch: mixtures of two references, ragged lengths; with
+    ``channels`` a (B, S, C) mixture, each channel the references at
+    gains of its own plus a little noise. -> (JAX module, its tree, the
+    flat weights, the port's model, the batch)."""
     kw = dict(num_spk=2, n_fft=128, hop_length=64, separator=sep,
-              separator_conf=dict(conf), **model_kw)
+              separator_conf=dict(conf))
+    kw.update(model_kw)
     model = EnhancementModel(**kw)
     flat = seeded({k: v.shape for k, v in
                    convert.state_dict_to_flax(model).items()}, seed)
     convert.load_flax_params(model, flat)
     rng = np.random.RandomState(seed)
     r1, r2 = (0.3 * rng.randn(2, B, S)).astype(np.float32)
-    batch = {"speech_mix": r1 + r2,
+    mix = r1 + r2
+    if channels is not None:
+        g = 0.5 + rng.rand(2, channels)
+        mix = (r1[..., None] * g[0] + r2[..., None] * g[1] + 0.05
+               * rng.randn(B, S, channels)).astype(np.float32)
+    batch = {"speech_mix": mix,
              "speech_mix_lengths": np.asarray([S, S - 203][:B]),
              "speech_ref1": r1, "speech_ref2": r2}
     jmod = JaxEnhancement(**dict(kw, separator_conf=dict(conf)))
